@@ -1,0 +1,8 @@
+"""``python -m dvsg_tpu_torch stabilize ...``"""
+
+import sys
+
+from dvsg_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())
