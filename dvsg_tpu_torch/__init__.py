@@ -1,4 +1,4 @@
-"""dvsg_tpu_torch: the video stabilizer in PyTorch, with its warp kernel
+"""dvsg_tpu_torch: the video stabilizer in PyTorch, with its warp kernels
 written in CUDA for Hopper (sm_90a).
 
 The layout mirrors ``dvsg_tpu`` (``ops/``, ``models/``, ``pipeline/``,

@@ -1,4 +1,4 @@
-"""``python -m dvsg_tpu_torch stabilize ...``"""
+"""``python -m dvsg_tpu_torch {stabilize,train,eval} ...``"""
 
 import sys
 

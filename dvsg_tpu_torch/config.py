@@ -1,8 +1,9 @@
 """Configuration dataclasses of the PyTorch port.
 
-An own copy of ``ModelConfig``/``StabilizeConfig`` with the same field
-names, defaults and checks as the JAX package's, so a checkpoint's
-``__config__`` record loads into either package. The chunk size T is a
+An own copy of ``ModelConfig``/``StabilizeConfig``/``TrainConfig`` with the
+same field names, defaults and checks as the JAX package's, so a
+checkpoint's ``__config__`` record loads into either package and
+``config_to_json`` writes the record the other reads. The chunk size T is a
 plain default (16); resolution-keyed chunk bands are measured per device
 and are not carried over.
 """
@@ -10,7 +11,8 @@ and are not carried over.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import json
+from typing import Any, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +82,38 @@ class StabilizeConfig:
         if not 0.0 <= self.border_crop < 0.5:
             raise ValueError(
                 f"border_crop must be in [0, 0.5), got {self.border_crop}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Self-supervised training configuration (synthetic-jitter fixtures)."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    batch_size: int = 8
+    learning_rate: float = 2e-4
+    weight_decay: float = 1e-5
+    steps: int = 1000
+    warmup_steps: int = 100
+    pixel_weight: float = 1.0
+    offset_weight: float = 10.0   # direct regression to the known
+                                  # window-relative stabilizing offsets
+    smooth_weight: float = 0.1    # temporal smoothness between frame grids
+    reg_weight: float = 0.001     # offset magnitude regularizer
+    seed: int = 0
+    checkpoint_every: int = 200
+
+
+def _to_jsonable(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {k: _to_jsonable(v)
+                for k, v in dataclasses.asdict(obj).items()}
+    if isinstance(obj, tuple):
+        return list(obj)
+    return obj
+
+
+def config_to_json(cfg: Any) -> str:
+    return json.dumps(_to_jsonable(cfg), indent=2, sort_keys=True)
 
 
 def _tuplify(d: dict, keys=("model_size", "grid_size")) -> dict:

@@ -19,6 +19,8 @@ Public functions keep the reference's NHWC layouts.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -166,6 +168,36 @@ class MotionEstimator(nn.Module):
         x = gelu(self.head_conv1(x.to(torch.float32)))
         x = gelu(self.head_conv2(x))
         return torch.tanh(self.head_out(x)) * cfg.max_offset
+
+
+# Standard deviation of a unit normal truncated to [-2, 2]: the reference's
+# default kernel initializer divides by it so the truncated draw has
+# variance 1 / fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator
+                ) -> dict[str, torch.Tensor]:
+    """A fresh state dict for ``MotionEstimator(cfg)``, drawn from
+    ``generator`` as the reference initializes its model: conv kernels
+    truncated normal (±2 sigma) with variance 1 / fan_in, biases zero,
+    GroupNorm weight one, and a zero ``head_out`` kernel, so an untrained
+    model predicts zero offsets (the identity warp)."""
+    model = MotionEstimator(cfg)
+    params = {}
+    for name, p in model.state_dict().items():
+        if name.endswith(".bias") or name == "head_out.weight":
+            params[name] = torch.zeros_like(p)
+        elif p.dim() == 1:                      # GroupNorm weight
+            params[name] = torch.ones_like(p)
+        else:                                   # conv kernel, OIHW
+            fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            w = torch.empty(p.shape, dtype=p.dtype, device=generator.device)
+            torch.nn.init.trunc_normal_(w, std=std, a=-2.0 * std,
+                                        b=2.0 * std, generator=generator)
+            params[name] = w.to(p.device)
+    return params
 
 
 def encode_frames(model: MotionEstimator, frames: torch.Tensor

@@ -46,3 +46,34 @@ def grid_from_offsets(offsets: torch.Tensor, height: int, width: int,
     dense = upsample_offsets(offsets, height, width)
     scale = 1.0 - 2.0 * border_crop
     return identity_grid(height, width, offsets.device) * scale + dense
+
+
+def grid_to_pixel_coords(grid: torch.Tensor, height: int, width: int):
+    """Unnormalize an align_corners=True grid to pixel coordinates (x, y)."""
+    x = (grid[..., 0] + 1.0) * 0.5 * (width - 1)
+    y = (grid[..., 1] + 1.0) * 0.5 * (height - 1)
+    return x, y
+
+
+def _homogeneous(height: int, width: int, device) -> torch.Tensor:
+    base = identity_grid(height, width, device)            # (H, W, 2)
+    return torch.cat([base, torch.ones_like(base[..., :1])], dim=-1)
+
+
+def affine_grid(theta: torch.Tensor, height: int, width: int
+                ) -> torch.Tensor:
+    """Sampling grid(s) (..., H, W, 2) for 2x3 affine matrices (..., 2, 3)
+    acting on normalized coords; ``theta`` maps output coords to input
+    coords (the convention of ``torch.nn.functional.affine_grid``)."""
+    homo = _homogeneous(height, width, theta.device)
+    return torch.einsum("hwk,...ck->...hwc", homo, theta.to(homo.dtype))
+
+
+def homography_grid(hmat: torch.Tensor, height: int, width: int
+                    ) -> torch.Tensor:
+    """Sampling grid(s) (..., H, W, 2) for 3x3 homographies (..., 3, 3) on
+    normalized coords: (x', y', w') = H @ (x, y, 1); grid = (x'/w', y'/w').
+    Mild camera perspectives keep w' near 1; no sign handling."""
+    homo = _homogeneous(height, width, hmat.device)
+    out = torch.einsum("hwk,...ck->...hwc", homo, hmat.to(homo.dtype))
+    return out[..., :2] / out[..., 2:]

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import json
 import time
 
 import numpy as np
@@ -58,3 +59,11 @@ class StageTimer:
                    "mean_ms": 1e3 * self.totals[name] / self.counts[name]}
             for name in self.totals
         }
+
+
+def write_metrics_jsonl(path: str, record: dict) -> None:
+    """Append one JSON line (with a ``ts`` timestamp) to ``path``."""
+    record = dict(record)
+    record.setdefault("ts", time.time())
+    with open(path, "a") as f:
+        f.write(json.dumps(record) + "\n")

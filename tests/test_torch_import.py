@@ -16,14 +16,25 @@ from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+def _port_modules():
+    """Every module of the port, found on disk, and the smoke script."""
+    mods = []
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "dvsg_tpu_torch")):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)[:-3]
+                mods.append(rel.replace(os.sep, ".").removesuffix(
+                    ".__init__"))
+    return sorted(mods) + ["chip_smoke"]
+
+
 _PROBE = """
-import sys
-import dvsg_tpu_torch, dvsg_tpu_torch.cli, dvsg_tpu_torch.__main__
-import dvsg_tpu_torch.ops._build, dvsg_tpu_torch.ops.warp
-import dvsg_tpu_torch.pipeline.stabilize, dvsg_tpu_torch.utils.video_io
-import chip_smoke
+import importlib, sys
+for mod in {mods!r}:
+    importlib.import_module(mod)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "dvsg_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "dvsg_tpu"))
 print(",".join(bad))
 """
 
@@ -31,8 +42,11 @@ print(",".join(bad))
 def test_port_imports_no_jax():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT
-    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
+    mods = _port_modules()
+    assert "dvsg_tpu_torch.train.loop" in mods and len(mods) > 20
+    res = subprocess.run([sys.executable, "-c", _PROBE.format(mods=mods)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "", f"imported: {res.stdout.strip()}"
 
@@ -104,3 +118,34 @@ def test_config_dict_roundtrip_matches_reference():
         StabilizeConfig(border_crop=0.5)
     with pytest.raises(ValueError):
         StabilizeConfig(strength=np.float32(2.5))
+
+
+def test_no_source_of_the_port_names_jax_modules():
+    """No import statement of the port or the smoke script names a JAX-side
+    module."""
+    import re
+    pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|orbax|"
+                     r"dvsg_tpu)(?:[.\s]|$)", re.M)
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "dvsg_tpu_torch")):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            hit = pat.search(f.read())
+        assert hit is None, f"{path}: {hit.group(0).strip()}"
+
+
+@pytest.mark.parametrize("command", ["train", "eval"])
+def test_train_and_eval_default_to_the_card(command, tmp_path):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    args = ["--checkpoint", str(tmp_path / "c"), "--steps", "1"] \
+        if command == "train" else ["--clips", "1", "--frames", "4"]
+    res = subprocess.run([sys.executable, "-m", "dvsg_tpu_torch", command,
+                          *args], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode != 0
+    assert "pass device='cpu'" in res.stderr

@@ -231,7 +231,10 @@ def test_cli_resume_needs_frame_dir_output(tmp_path):
 
 def test_cli_needs_the_stabilize_command():
     assert cli.main([]) == 2
-    assert cli.main(["train"]) == 2
+    assert cli.main(["stabilize-batch"]) == 2      # not a command here
+    with pytest.raises(SystemExit) as e:           # a command, bad usage
+        cli.main(["train"])
+    assert e.value.code == 2
 
 
 def test_video_io_container_roundtrip_and_errors(clip, tmp_path):

@@ -93,3 +93,73 @@ def test_grid_from_offsets_rejects_bad_crop(crop):
 
 def test_jax_stays_on_cpu():
     assert jax.default_backend() == "cpu"
+
+
+# --- the training path's grids and the bicubic operator ----------------------
+
+def test_grid_to_pixel_coords_matches_reference():
+    rng = np.random.default_rng(20)
+    g = rng.uniform(-1.3, 1.3, (2, 5, 7, 2)).astype(np.float32)
+    for ours, want in zip(
+            tgrid.grid_to_pixel_coords(torch.from_numpy(g), 37, 150),
+            jgrid.grid_to_pixel_coords(jnp.asarray(g), 37, 150)):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(want),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,w", [(8, 8), (32, 32), (37, 150)])
+def test_affine_and_homography_grids_match_reference(h, w):
+    """Batched over a leading axis in the port; the reference vmaps."""
+    rng = np.random.default_rng(21)
+    theta = (np.eye(3)[None] + 0.05 * rng.standard_normal((4, 3, 3))
+             ).astype(np.float32)
+    theta[:, 2, 2] = 1.0
+    want_h = jax.vmap(lambda t: jgrid.homography_grid(t, h, w))(
+        jnp.asarray(theta))
+    ours_h = tgrid.homography_grid(torch.from_numpy(theta), h, w)
+    assert ours_h.shape == (4, h, w, 2)
+    np.testing.assert_allclose(ours_h.numpy(), np.asarray(want_h),
+                               rtol=0, atol=1e-6)
+    want_a = jax.vmap(lambda t: jgrid.affine_grid(t, h, w))(
+        jnp.asarray(theta[:, :2]))
+    ours_a = tgrid.affine_grid(torch.from_numpy(theta[:, :2]), h, w)
+    np.testing.assert_allclose(ours_a.numpy(), np.asarray(want_a),
+                               rtol=0, atol=1e-6)
+    # unbatched, and two leading axes
+    np.testing.assert_allclose(
+        tgrid.homography_grid(torch.from_numpy(theta[0]), h, w).numpy(),
+        np.asarray(want_h[0]), rtol=0, atol=1e-6)
+    assert tgrid.homography_grid(
+        torch.from_numpy(theta.reshape(2, 2, 3, 3)), h, w).shape \
+        == (2, 2, h, w, 2)
+
+
+@pytest.mark.parametrize("n_out", [32, 128, 256])
+@pytest.mark.parametrize("n_in", [4, 8, 16, 64])
+def test_bicubic_matches_jax_image_resize(n_in, n_out):
+    """The still generator's upsample: Keys a = -0.5 with border weights
+    renormalized, not F.interpolate's a = -0.75 with clamped taps."""
+    rng = np.random.default_rng(n_in + n_out)
+    x = rng.random((n_in, n_in, 3), dtype=np.float32)
+    want = np.asarray(jax.image.resize(jnp.asarray(x), (n_out, n_out, 3),
+                                       method="bicubic"))
+    ours = tresize.resize_bicubic(torch.from_numpy(x), n_out, n_out).numpy()
+    print(f"bicubic {n_in} -> {n_out}: max |diff| "
+          f"{np.abs(ours - want).max():.2e}")
+    np.testing.assert_allclose(ours, want, rtol=0, atol=1e-5)
+    if n_out > n_in:
+        torch_own = torch.nn.functional.interpolate(
+            torch.from_numpy(x).permute(2, 0, 1)[None], (n_out, n_out),
+            mode="bicubic", align_corners=False)[0].permute(1, 2, 0).numpy()
+        assert np.abs(torch_own - want).max() > 1e-3    # why it is not used
+
+
+def test_bicubic_batched_and_rectangular():
+    rng = np.random.default_rng(22)
+    x = rng.random((2, 3, 8, 16, 3), dtype=np.float32)
+    want = np.asarray(jax.image.resize(jnp.asarray(x), (2, 3, 40, 24, 3),
+                                       method="bicubic"))
+    ours = tresize.resize_bicubic(torch.from_numpy(x), 40, 24).numpy()
+    np.testing.assert_allclose(ours, want, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError):
+        tresize._resize_matrix(4, 8, "lanczos")

@@ -118,8 +118,13 @@ def test_warp_quantize_batch_offsets_path_and_dense_grids():
     torch.testing.assert_close(out, twarp_wide.warp_u8_offsets(f, o, 0.05),
                                rtol=0, atol=0)
     grids = tgrid.grid_from_offsets(o, 40, 150)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        twarp.warp_quantize_batch(f, grids=grids)
+    # Dense grids go to the dense-grid op: the oracle on the CPU, and the
+    # same warp as the offsets path when the grid is built from them.
+    dense = twarp.warp_quantize_batch(f, grids=grids)
+    torch.testing.assert_close(dense, twarp_wide.warp_u8_batch(f, grids),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        dense, twarp.warp_quantize_batch(f, offsets=o), rtol=0, atol=0)
     with pytest.raises(ValueError):
         twarp.warp_quantize_batch(f)
 
