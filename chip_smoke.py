@@ -8,14 +8,17 @@ non-zero without a card or outside the repository. Phases, each raising
 on failure:
 
 1. card, power limit and versions; build every kernel with nvcc, one
-   process per source, started together;
+   process per source, started together; registers and spills of every
+   kernel as ptxas reports them;
 2. each kernel against its plain PyTorch version on the card, at its main
-   path's shapes and at edge shapes: the uint8 kernels within 1 LSB, the
-   f32 warp within 1e-5, its derivative images within 1e-4, its grid
-   gradient within 1e-4 of the largest gradient;
+   path's shapes and at edge shapes: the uint8 kernels within 1 LSB (both
+   offsets kernels, each on the shapes the wrapper sends it, and the
+   general-shape one also on the packed kernel's), the f32 warps within
+   1e-5, the grid gradient within 1e-4 of the largest gradient;
 3. the stabilize path, ``Stabilizer.stabilize_clip`` with T = 16 on a
    seeded 48-frame 1280x720 shaky clip, for both shipped presets at full
-   width and depth: output shape and dtype, one kernel launch per chunk,
+   width and depth: output shape and dtype, one launch of the packed
+   offsets kernel per chunk,
    ``stabilize_stream`` with a resume record byte-identical to the clip
    path, the card within 1 LSB of the CPU path on a small clip, a positive
    PSNR gain, and the same chunk through ``warp_quantize_batch(grids=...)``
@@ -34,7 +37,10 @@ on failure:
 6. times of a train step (data generation, forward, loss warp, backward,
    optimizer; medians of 20) and of each kernel beside its bound, its
    plain version and ``F.grid_sample`` (timed here as a yardstick only;
-   the port never calls it).
+   the port never calls it): medians of 20 single calls from a cold L2,
+   queued behind a long kernel. The two offsets kernels and the stage
+   variants of the general-shape one (each strips one part of it) are
+   timed in turns.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes every
@@ -45,9 +51,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -101,6 +109,48 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def sass_counts(name: str) -> dict:
+    """Instructions (NOP padding left out) in the SASS of every kernel of
+    one built source, by cuobjdump; empty where the toolkit has none."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", _build._target(name)[1]],
+                          check=True, capture_output=True, text=True,
+                          timeout=120).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?(\w+)", part)
+        counts[part.split()[0]] = sum(op != "NOP" for op in ops)
+    return counts
+
+
+def build_report() -> list:
+    """One line per kernel this process compiled: the stack frame and
+    spills, the registers and memory it uses, as ptxas printed them, and
+    the length of its SASS."""
+    lines, entry, frame = [], None, ""
+    for name, text in _build.PTXAS_LOG.items():
+        sass = sass_counts(name)
+        for line in text.splitlines():
+            if "Compiling entry function" in line:
+                entry, frame = line.split("'")[1], ""
+            elif "bytes stack frame" in line:
+                frame = line.strip()
+            elif "Used" in line and entry:
+                # <digit>kernel_name[ILi<stage>E] inside the mangled name
+                short = re.search(r"\d(warp_[a-z0-9_]*?_kernel)"
+                                  r"(?:ILi(\d+)E)?", entry)
+                kernel = entry if not short else short[1] + (
+                    f"<{short[2]}>" if short[2] else "")
+                lines.append(f"{kernel}: {frame}; "
+                             f"{line.split(':', 1)[1].strip()}; "
+                             f"{sass.get(entry, 'unknown')} SASS "
+                             f"instructions")
+                entry = None
+    return lines
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device ms per call, by CUDA events around ``iters`` calls."""
     for _ in range(warmup):
@@ -124,9 +174,12 @@ def _stall_and_flush(dev):
     while the host queues the timed calls behind it, and a write over a
     buffer larger than the 50 MB L2 that empties the cache."""
     if not _scratch:
-        _scratch["a"] = torch.randn(6144, 6144, device=dev)
-        _scratch["l2"] = torch.empty(96 * 1024 * 1024, dtype=torch.uint8,
-                                     device=dev)
+        # Outside inference mode, whoever asks first: the flush writes in
+        # place, which an inference tensor refuses elsewhere.
+        with torch.inference_mode(False):
+            _scratch["a"] = torch.randn(6144, 6144, device=dev)
+            _scratch["l2"] = torch.empty(96 * 1024 * 1024,
+                                         dtype=torch.uint8, device=dev)
     return (lambda: torch.mm(_scratch["a"], _scratch["a"]),
             _scratch["l2"].zero_)
 
@@ -307,37 +360,37 @@ def phase_dense_kernel_checks(rng, dev) -> dict:
             (b, ho, wo, c)).astype(np.float32)).to(dev)
         out_k = warp_bilinear.bilinear_warp_batch(frames, grids)
         out_p = warp_bilinear.bilinear_warp_batch_plain(frames, grids)
-        o_k, dx_k, dy_k = warp_bilinear.warp_diff_forward(frames, grids)
-        o_p, dx_p, dy_p = warp_bilinear.warp_diff_forward_plain(frames,
-                                                                grids)
-        dg_k = warp_bilinear.warp_diff_backward(cot, dx_p, dy_p, grids,
-                                                h, w)
-        dg_p = warp_bilinear.warp_diff_backward_plain(cot, dx_p, dy_p,
-                                                      grids, h, w)
+        o_k = warp_bilinear.warp_diff_forward(frames, grids)
+        dg_k = warp_bilinear.warp_diff_backward(cot, frames, grids)
+        dg_p = warp_bilinear.warp_diff_grid_grad_plain(cot, frames, grids)
+        # Through autograd: the same kernels, and nothing kept for the
+        # backward but the frames and the grids.
+        g_req = grids.clone().requires_grad_()
+        o_a = warp_bilinear.bilinear_warp_batch_grids_diff(frames, g_req)
+        kept = sorted(tuple(t.shape) for t in o_a.grad_fn.saved_tensors)
+        o_a.backward(cot)
         torch.cuda.synchronize()
         e_warp = float((out_k - out_p).abs().max())
-        e_val = float((o_k - o_p).abs().max())
-        e_der = max(float((dx_k - dx_p).abs().max()),
-                    float((dy_k - dy_p).abs().max()))
-        e_bwd = float((dg_k - dg_p).abs().max())
+        e_val = max(float((o_k - out_p).abs().max()),
+                    float((o_a.detach() - out_p).abs().max()))
+        e_bwd = max(float((dg_k - dg_p).abs().max()),
+                    float((g_req.grad - dg_p).abs().max()))
         g_max = float(dg_p.abs().max())
         held = float(((dg_p == 0).all(dim=-1)).float().mean())
         log(f"  warp_f32 {shape} -> {ho}x{wo} spill {spill}: value "
-            f"{e_warp:.2e}; diff fwd value {e_val:.2e}, derivative images "
-            f"{e_der:.2e}; diff bwd {e_bwd:.2e} of max |dgrid| "
-            f"{g_max:.1f} ({held:.3f} of pixels fully masked)")
+            f"{e_warp:.2e}; diff fwd value {e_val:.2e}; diff bwd "
+            f"{e_bwd:.2e} of max |dgrid| {g_max:.1f} ({held:.3f} of pixels "
+            f"fully masked)")
         if e_warp > 1e-5 or e_val > 1e-5:
             raise AssertionError(f"f32 warp value off by {e_warp:.2e} / "
                                  f"{e_val:.2e} at {shape}")
-        if e_der > 1e-4:
-            raise AssertionError(f"derivative images off by {e_der:.2e} "
-                                 f"at {shape}")
         if e_bwd > 1e-4 * max(g_max, 1.0):
             raise AssertionError(f"grid gradient off by {e_bwd:.2e} of "
                                  f"{g_max:.1f} at {shape}")
+        if kept != sorted([tuple(frames.shape), tuple(grids.shape)]):
+            raise AssertionError(f"the forward kept {kept} for its backward")
         worst["warp_f32"] = max(worst["warp_f32"], e_warp)
-        worst["warp_f32_diff_fwd"] = max(worst["warp_f32_diff_fwd"],
-                                         e_val, e_der)
+        worst["warp_f32_diff_fwd"] = max(worst["warp_f32_diff_fwd"], e_val)
         worst["warp_f32_diff_bwd"] = max(worst["warp_f32_diff_bwd"], e_bwd)
     u8_cases = (((T_CHUNK, HEIGHT, WIDTH, 3), (HEIGHT, WIDTH), 1.0),
                 *U8_EDGE_CASES)
@@ -360,30 +413,57 @@ def phase_dense_kernel_checks(rng, dev) -> dict:
     return worst
 
 
-def phase_kernel_checks(rng, dev) -> float:
-    """B1 against its plain version; returns the max |diff| in LSB."""
-    cases = [((T_CHUNK, HEIGHT, WIDTH, 3), 0.2, 0.0),
-             ((T_CHUNK, HEIGHT, WIDTH, 3), 0.2, 0.05),
-             ((T_CHUNK, 480, 854, 3), 0.2, 0.0),
-             ((4, HEIGHT, WIDTH, 3), 1.5, 0.0)]      # border clamp
+# Offsets-kernel checks: (frames shape, offset grid, amplitude, crop). The
+# first is the stabilize path's chunk; widths that are no multiple of four
+# and C != 3 go to the general-shape kernel; +-1.5 leaves the frame on
+# every side.
+B1_CASES = (((T_CHUNK, HEIGHT, WIDTH, 3), (16, 16), 0.2, 0.0),
+            ((T_CHUNK, HEIGHT, WIDTH, 3), (16, 16), 0.2, 0.05),
+            ((4, HEIGHT, WIDTH, 3), (16, 16), 1.5, 0.0),
+            ((2, HEIGHT, WIDTH, 3), (8, 8), 0.2, 0.03),
+            ((2, HEIGHT, WIDTH, 3), (32, 32), 0.2, 0.0),
+            ((3, 96, 132, 3), (5, 7), 1.5, 0.1),
+            ((T_CHUNK, 480, 854, 3), (16, 16), 0.2, 0.0),
+            ((T_CHUNK, 480, 854, 3), (16, 16), 0.2, 0.05),
+            ((3, 97, 131, 3), (16, 16), 1.5, 0.0),
+            ((2, 360, 640, 1), (16, 16), 0.2, 0.0),
+            ((2, 360, 640, 4), (8, 8), 0.2, 0.05))
+
+
+def phase_kernel_checks(rng, dev) -> int:
+    """Both offsets kernels against the plain version: the wrapper's pick
+    on every case, and the general-shape kernel also on the packed
+    kernel's shapes. Returns the max |diff| in LSB."""
     worst = 0
-    for shape, amp, crop in cases:
+    for shape, grid, amp, crop in B1_CASES:
         frames = torch.from_numpy(
             rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
         offs = torch.from_numpy(rng.uniform(
-            -amp, amp, (shape[0], 16, 16, 2)).astype(np.float32)).to(dev)
-        out_k = warp_wide.warp_u8_offsets(frames, offs, crop)
+            -amp, amp, (shape[0], *grid, 2)).astype(np.float32)).to(dev)
+        packed = warp_wide.takes_packed_kernel(shape)
+        pick = "packed" if packed else "general"
+        before = warp_wide.LAUNCHES, warp_wide.LAUNCHES_PACKED
+        outs = {pick: warp_wide.warp_u8_offsets(frames, offs, crop)}
+        if (warp_wide.LAUNCHES - before[0],
+                warp_wide.LAUNCHES_PACKED - before[1]) != (1, int(packed)):
+            raise AssertionError(f"{shape} did not take the {pick} kernel")
+        if packed:
+            outs["general"] = warp_wide._launch(
+                frames, warp_wide.offset_rows(offs, shape[1]), crop,
+                packed=False)
         out_p = warp_wide.warp_u8_offsets_plain(frames, offs, crop)
         torch.cuda.synchronize()
-        diff = (out_k.to(torch.int16) - out_p.to(torch.int16)).abs()
-        maxd = int(diff.max())
-        share = float((diff > 0).float().mean())
-        log(f"  warp_u8_offsets {shape} offsets ±{amp} crop {crop}: "
-            f"max |diff| {maxd} LSB, {share:.3e} of values differ")
-        if maxd > 1:
-            raise AssertionError(f"kernel differs from plain by {maxd} LSB "
-                                 f"at {shape}, crop {crop}")
-        worst = max(worst, maxd)
+        for name, out_k in outs.items():
+            diff = (out_k.to(torch.int16) - out_p.to(torch.int16)).abs()
+            maxd = int(diff.max())
+            share = float((diff > 0).float().mean())
+            log(f"  warp_u8_offsets[{name}] {shape} grid {grid} offsets "
+                f"±{amp} crop {crop}: max |diff| {maxd} LSB, {share:.3e} "
+                f"of values differ")
+            if maxd > 1:
+                raise AssertionError(f"{name} kernel differs from plain by "
+                                     f"{maxd} LSB at {shape}, crop {crop}")
+            worst = max(worst, maxd)
     return worst
 
 
@@ -401,17 +481,19 @@ def phase_main_path(seed: int, dev):
         cfg = StabilizeConfig(model=mcfg, chunk_frames=T_CHUNK)
         stab = stab_lib.Stabilizer(cfg, params, device="cuda")
 
-        warp_wide.LAUNCHES = 0
+        warp_wide.LAUNCHES = warp_wide.LAUNCHES_PACKED = 0
         out = stab.stabilize_clip(clip)
         torch.cuda.synchronize()
-        n = warp_wide.LAUNCHES
+        n, n_packed = warp_wide.LAUNCHES, warp_wide.LAUNCHES_PACKED
         launches += n
         log(f"  [{preset}] stabilize_clip {clip.shape}: {n} kernel "
-            f"launches for {n_chunks} chunks")
+            f"launches ({n_packed} of the packed kernel) for {n_chunks} "
+            f"chunks")
         if out.shape != clip.shape or out.dtype != np.uint8:
             raise AssertionError(f"output {out.shape} {out.dtype}")
-        if n != n_chunks:
-            raise AssertionError(f"{n} launches for {n_chunks} chunks")
+        if n != n_chunks or n_packed != n_chunks:
+            raise AssertionError(f"{n} launches, {n_packed} of the packed "
+                                 f"kernel, for {n_chunks} chunks")
 
         with tempfile.TemporaryDirectory() as resume_dir:
             reader = MemReader(clip)
@@ -532,42 +614,81 @@ def phase_times(stabs, clip, dev, results):
     return b1
 
 
+# Stage variants of the two offsets kernels, (packed, stage, name): what
+# each leaves out of its kernel (the Stage values of
+# csrc/warp_u8_offsets.cu).
+B1_STAGES = ((0, 0, "general_full"), (0, 1, "general_no_taps"),
+             (0, 2, "general_identity_coordinate"),
+             (0, 4, "general_index32_3d_launch"), (0, 8, "general_no_stores"),
+             (1, 1, "packed_no_taps"), (1, 2, "packed_identity_coordinate"),
+             (1, 3, "packed_no_taps_identity_coordinate"))
+
+
+def launch_b1_stage(frames, rows, out, crop, packed: int, stage: int
+                    ) -> None:
+    fn = _build.library("warp_u8_offsets").dvsg_warp_u8_offsets_probe
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    b, h, w, c = frames.shape
+    rc = fn(frames.data_ptr(), rows.data_ptr(), out.data_ptr(), b, h, w, c,
+            rows.shape[2], float(crop), stage, packed,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"offsets kernel stage {stage} (packed "
+                           f"{packed}): CUDA error {rc}")
+
+
 def time_b1(frames, offsets, crop) -> dict:
     b, h, w, c = frames.shape
     gh, gw = offsets.shape[1:3]
     # ms is the wrapper's time: the offsets' row upsample (one einsum) and
     # the kernel. kernel_ms is the kernel's launch alone, on those rows.
-    ms = time_ms(lambda: warp_wide.warp_u8_offsets(frames, offsets, crop),
-                 iters=50)
+    ms = median_ms(lambda: warp_wide.warp_u8_offsets(frames, offsets, crop))
     rows = warp_wide.offset_rows(offsets, h)
-    kernel_ms = time_ms(lambda: warp_wide._launch(frames, rows, crop),
-                        iters=50)
-    plain_ms = time_ms(lambda: warp_wide.warp_u8_offsets_plain(
+    out = torch.empty_like(frames)
+    # The two kernels and their stage variants, in turns.
+    turns = [("general", lambda: warp_wide._launch(frames, rows, crop,
+                                                   packed=False)),
+             ("packed", lambda: warp_wide._launch(frames, rows, crop,
+                                                  packed=True))]
+    turns += [(name, lambda p=p, k=k: launch_b1_stage(
+        frames, rows, out, crop, p, k)) for p, k, name in B1_STAGES]
+    turns += turns[1::-1]
+    in_turns = {}
+    for name, fn in turns:
+        in_turns.setdefault(name, []).append(median_ms(fn))
+    kernel_ms = float(np.mean(in_turns["packed"]))
+    general_ms = float(np.mean(in_turns["general"]))
+    plain_ms = median_ms(lambda: warp_wide.warp_u8_offsets_plain(
         frames, offsets, crop), iters=10)
     # Yardstick: one grid_sample call computing the same warp on f32 NCHW
     # frames from the dense grid (both made outside the timed call).
     src = frames.permute(0, 3, 1, 2).to(torch.float32).contiguous()
     grids = grid_ops.grid_from_offsets(offsets, h, w, crop)
-    lib_ms = time_ms(lambda: F.grid_sample(
+    lib_ms = median_ms(lambda: F.grid_sample(
         src, grids, mode="bilinear", padding_mode="border",
-        align_corners=True), iters=20)
+        align_corners=True))
     # Bound: frames read once and written once, offsets read once; ~60 f32
     # operations per output pixel (coordinates, 4 taps x C lerps, rounds).
-    n_bytes = 2 * b * h * w * c + offsets.numel() * 4
-    n_ops = b * h * w * (30 + 10 * c)
-    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * n_ops / PEAK_F32_FLOPS
-    bound_ms = max(bytes_ms, ops_ms)
-    rec = {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-           "library_ms": lib_ms,
-           "bound_ms": bound_ms,
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    bound_ms, by = bound(2 * b * h * w * c + offsets.numel() * 4,
+                         b * h * w * (30 + 10 * c))
+    rec = {"ms": ms, "kernel_ms": kernel_ms, "general_kernel_ms": general_ms,
+           "in_turns_ms": in_turns, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by,
            "frames_per_call": b, "shape": [b, h, w, c], "grid": [gh, gw]}
-    log(f"  warp_u8_offsets {b}x{h}x{w}x{c}: {ms:.4f} ms/call = "
-        f"{1e3 * ms / b:.3f} us/frame (kernel alone {kernel_ms:.4f} "
-        f"ms); bound {1e3 * bound_ms / b:.3f} "
-        f"us/frame ({rec['bound_by']}); plain {1e3 * plain_ms / b:.3f} "
-        f"us/frame; F.grid_sample {1e3 * lib_ms / b:.3f} us/frame")
+    log(f"  warp_u8_offsets {b}x{h}x{w}x{c}, medians of 20 from a cold L2: "
+        f"wrapper {ms:.4f} ms = {1e3 * ms / b:.3f} us/frame; packed kernel "
+        f"alone {kernel_ms:.4f} ms = {100 * bound_ms / kernel_ms:.1f} % of "
+        f"the bound {bound_ms:.5f} ms ({by}); general-shape kernel "
+        f"{general_ms:.4f} ms; plain {plain_ms:.4f} ms; F.grid_sample "
+        f"{lib_ms:.4f} ms")
+    log("  in turns, ms: " + "; ".join(
+        f"{k} {' / '.join(f'{v:.4f}' for v in vs)}"
+        for k, vs in in_turns.items()))
+    if not kernel_ms < general_ms:
+        raise AssertionError("the packed kernel is no faster than the "
+                             "general-shape one on the main path's shape")
     return rec
 
 
@@ -894,7 +1015,8 @@ def time_dense_kernels(rng, dev) -> dict:
         "library_ms": median_ms(lambda: lib(nchw, grids)),
         "bound_ms": bound_ms, "bound_by": by, "shape": [b, h, w, c]}
 
-    # The loss warp, B = 16: forward with derivative images, and backward.
+    # The loss warp, B = 16: forward (values only) and backward (cotangent,
+    # frames and grid in, grid cotangent out).
     b = 16
     frames, grids, nchw = frames[:b].contiguous(), grids[:b].contiguous(), \
         nchw[:b].contiguous()
@@ -902,27 +1024,30 @@ def time_dense_kernels(rng, dev) -> dict:
     n_pix = b * h * w
     cot = torch.from_numpy(rng.standard_normal(
         (b, h, w, c)).astype(np.float32)).to(dev)
-    _, dximg, dyimg = warp_bilinear.warp_diff_forward(frames, grids)
-    bound_ms, by = bound(4 * (frames.numel() + grids.numel()
-                              + 3 * n_pix * c), n_pix * (20 + 14 * c))
+    bound_ms, by = bound(4 * (frames.numel() + grids.numel() + n_pix * c),
+                         n_pix * (20 + 6 * c))
     recs["warp_f32_diff_fwd"] = {
         "ms": median_ms(lambda: warp_bilinear.warp_diff_forward(
             frames, grids)),
         "plain_ms": median_ms(
-            lambda: warp_bilinear.warp_diff_forward_plain(frames, grids)),
+            lambda: warp_bilinear.bilinear_warp_batch_plain(frames, grids)),
         "library_ms": median_ms(lambda: lib(nchw, grids)),
+        # The same warp through warp_f32's kernel (strided stores), beside
+        # the forward's RGB kernel (stores staged in shared memory).
+        "general_kernel_ms": median_ms(
+            lambda: warp_bilinear.bilinear_warp_batch(frames, grids)),
         "bound_ms": bound_ms, "bound_by": by, "shape": [b, h, w, c]}
     g_req = grids.clone().requires_grad_()
     lib_out = lib(nchw, g_req)
     cot_nchw = cot.permute(0, 3, 1, 2).contiguous()
-    bound_ms, by = bound(4 * (3 * n_pix * c + 2 * grids.numel()),
-                         n_pix * (10 + 4 * c))
+    bound_ms, by = bound(4 * (n_pix * c + frames.numel()
+                              + 2 * grids.numel()), n_pix * (30 + 14 * c))
     recs["warp_f32_diff_bwd"] = {
         "ms": median_ms(lambda: warp_bilinear.warp_diff_backward(
-            cot, dximg, dyimg, grids, h, w)),
+            cot, frames, grids)),
         "plain_ms": median_ms(
-            lambda: warp_bilinear.warp_diff_backward_plain(
-                cot, dximg, dyimg, grids, h, w)),
+            lambda: warp_bilinear.warp_diff_grid_grad_plain(
+                cot, frames, grids)),
         "library_ms": median_ms(lambda: torch.autograd.grad(
             lib_out, g_req, cot_nchw, retain_graph=True)),
         "bound_ms": bound_ms, "bound_by": by, "shape": [b, h, w, c]}
@@ -949,7 +1074,7 @@ def time_dense_kernels(rng, dev) -> dict:
         "warp_f32_diff_fwd": lambda: warp_bilinear.warp_diff_forward(
             frames, grids16),
         "warp_f32_diff_bwd": lambda: warp_bilinear.warp_diff_backward(
-            cot, dximg, dyimg, grids16, 256, 256),
+            cot, frames, grids16),
         "warp_u8_batch": lambda: warp_wide.warp_u8_batch(frames8, grids),
     }
     for name, fn in warm.items():
@@ -959,7 +1084,10 @@ def time_dense_kernels(rng, dev) -> dict:
             f"({r['warm_l2_ms']:.4f} ms back to back); bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain "
             f"{r['plain_ms']:.4f} ms; F.grid_sample "
-            f"{r['library_ms']:.4f} ms")
+            f"{r['library_ms']:.4f} ms"
+            + (f"; warp_f32's kernel on the same inputs "
+               f"{r['general_kernel_ms']:.4f} ms"
+               if "general_kernel_ms" in r else ""))
     return recs
 
 
@@ -989,6 +1117,9 @@ def main(argv=None) -> int:
     log(f"built and loaded {len(SOURCES)} sources concurrently in "
         f"{build_s:.2f} s: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in build_each.items()))
+    ptxas = build_report()
+    for line in ptxas:
+        log("  " + line)
 
     log("== phase 2: kernels against their plain versions")
     rng = np.random.default_rng(args.seed)
@@ -1046,7 +1177,7 @@ def main(argv=None) -> int:
               "cuda": torch.version.cuda, "seed": args.seed,
               "kernels": kernels, "b1": b1, "dense_kernels": dense,
               "presets": results, "training": train_results,
-              "eval": eval_results, "build_s": build_s,
+              "eval": eval_results, "build_s": build_s, "ptxas": ptxas,
               "build_each_s": build_each,
               "wall_s": time.perf_counter() - t_start}
     if args.json:

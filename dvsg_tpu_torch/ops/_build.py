@@ -5,7 +5,9 @@ first use into its own shared library (``library``; ``build`` compiles
 several sources concurrently) under ``build/dvsg_tpu_torch/`` at
 the root of the checkout, named by a hash of its source and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is. A failed
-build raises with nvcc's stderr.
+build raises with nvcc's stderr; a build that succeeds leaves ptxas's
+report (registers, shared memory and spills of every kernel) in
+``PTXAS_LOG``.
 """
 
 from __future__ import annotations
@@ -21,9 +23,12 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "dvsg_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
+# ptxas's report for each source this process compiled (none for a library
+# that was found built).
+PTXAS_LOG: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -75,6 +80,7 @@ def build(names) -> dict[str, float]:
                           f"{proc.returncode}):\n{err}")
         else:
             os.replace(tmp, path)          # atomic: no half-written .so
+            PTXAS_LOG[name] = err
     if errors:
         raise RuntimeError("\n".join(errors))
     for name, (_, path) in paths.items():

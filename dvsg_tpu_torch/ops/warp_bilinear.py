@@ -9,11 +9,13 @@ The counterpart of the reference's ``dvsg_tpu/ops/warp_pallas.py``:
 * ``bilinear_warp_batch_grids_diff`` — the same values, differentiable with
   respect to the GRIDS only: the pixel loss differentiates through the
   sampling grid into the CNN while the sampled frames are data. The forward
-  also emits the per-channel derivative images ∂out/∂x, ∂out/∂y (pixel
-  units) from the same four taps; the backward contracts the output
-  cotangent with them, masks coordinates the border clamp held
-  (strict interior ``0 < coord < S - 1`` on the unclamped coordinate) and
-  rescales to normalized units. The frames' gradient is ``None``.
+  writes the values only and keeps the frames and the grids. The backward
+  gathers the four taps again, forms the per-channel derivative images
+  ∂out/∂x, ∂out/∂y (pixel units) from them, contracts the output cotangent
+  with them, masks coordinates the border clamp held (strict interior
+  ``0 < coord < S - 1`` on the unclamped coordinate) and rescales to
+  normalized units; no derivative image is stored. The frames' gradient is
+  ``None``.
 
 On CUDA tensors every function launches its hand-written kernel from
 ``csrc/warp_bilinear.cu`` (or raises); on CPU tensors it runs the plain
@@ -62,8 +64,9 @@ def bilinear_warp_batch_plain(frames: torch.Tensor, grids: torch.Tensor
 
 
 def warp_diff_forward_plain(frames: torch.Tensor, grids: torch.Tensor):
-    """Plain version of the differentiable forward: (out, dximg, dyimg),
-    each (B, Ho, Wo, C) f32 (f64 for f64 frames)."""
+    """The differentiable warp's values and its derivative images: (out,
+    dximg, dyimg), each (B, Ho, Wo, C) f32 (f64 for f64 frames). The plain
+    definition of what the backward recomputes from the taps."""
     (v00, v01, v10, v11), (fx, fy) = warp_ref.bilinear_taps(frames, grids)
     top = v00 + (v01 - v00) * fx
     bot = v10 + (v11 - v10) * fx
@@ -76,8 +79,9 @@ def warp_diff_forward_plain(frames: torch.Tensor, grids: torch.Tensor):
 def warp_diff_backward_plain(g: torch.Tensor, dximg: torch.Tensor,
                              dyimg: torch.Tensor, grids: torch.Tensor,
                              h: int, w: int) -> torch.Tensor:
-    """Plain version of the backward: the grid cotangent (B, Ho, Wo, 2)
-    for the output cotangent ``g`` and an (h, w) source frame."""
+    """The contraction half of the backward: the grid cotangent
+    (B, Ho, Wo, 2) for the output cotangent ``g``, the derivative images
+    and an (h, w) source frame."""
     g = g.to(dximg.dtype)
     gr = grids.to(dximg.dtype)
     x = (gr[..., 0] + 1.0) * 0.5 * (w - 1)
@@ -88,6 +92,16 @@ def warp_diff_backward_plain(g: torch.Tensor, dximg: torch.Tensor,
     dgx = (g * dximg).sum(dim=-1) * mask_x * (0.5 * (w - 1))
     dgy = (g * dyimg).sum(dim=-1) * mask_y * (0.5 * (h - 1))
     return torch.stack([dgx, dgy], dim=-1)
+
+
+def warp_diff_grid_grad_plain(g: torch.Tensor, frames: torch.Tensor,
+                              grids: torch.Tensor) -> torch.Tensor:
+    """Plain version of the backward kernel: the grid cotangent
+    (B, Ho, Wo, 2) from the output cotangent, the frames and the grids
+    (the two plain halves composed)."""
+    _, dximg, dyimg = warp_diff_forward_plain(frames, grids)
+    return warp_diff_backward_plain(g, dximg, dyimg, grids,
+                                    frames.shape[1], frames.shape[2])
 
 
 # --- kernels -------------------------------------------------------------------
@@ -101,8 +115,8 @@ def _kernels():
     from dvsg_tpu_torch.ops import _build
     lib = _build.library("warp_bilinear")
     fns = {}
-    for name, n_ptr in (("dvsg_warp_f32", 3), ("dvsg_warp_f32_diff_fwd", 5),
-                        ("dvsg_warp_f32_diff_bwd", 5)):
+    for name, n_ptr in (("dvsg_warp_f32", 3), ("dvsg_warp_f32_diff_fwd", 3),
+                        ("dvsg_warp_f32_diff_bwd", 4)):
         fn = getattr(lib, name)
         fn.argtypes = [_P] * n_ptr + [_I] * 6 + [_P]
         fn.restype = _I
@@ -142,29 +156,26 @@ def _launch_warp(frames: torch.Tensor, grids: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _launch_diff_fwd(frames: torch.Tensor, grids: torch.Tensor):
+def _launch_diff_fwd(frames: torch.Tensor, grids: torch.Tensor
+                     ) -> torch.Tensor:
     global LAUNCHES_DIFF_FWD
     b, _, _, c, ho, wo = dims = _dims(frames, grids)
-    out, dximg, dyimg = (torch.empty((b, ho, wo, c), dtype=torch.float32,
-                                     device=frames.device)
-                         for _ in range(3))
+    out = torch.empty((b, ho, wo, c), dtype=torch.float32,
+                      device=frames.device)
     if out.numel():
-        _run("dvsg_warp_f32_diff_fwd", (frames, grids, out, dximg, dyimg),
-             dims, frames.device)
+        _run("dvsg_warp_f32_diff_fwd", (frames, grids, out), dims,
+             frames.device)
         LAUNCHES_DIFF_FWD += 1
-    return out, dximg, dyimg
+    return out
 
 
-def _launch_diff_bwd(g: torch.Tensor, dximg: torch.Tensor,
-                     dyimg: torch.Tensor, grids: torch.Tensor,
-                     h: int, w: int) -> torch.Tensor:
+def _launch_diff_bwd(g: torch.Tensor, frames: torch.Tensor,
+                     grids: torch.Tensor) -> torch.Tensor:
     global LAUNCHES_DIFF_BWD
-    b, ho, wo, c = dximg.shape
-    dgrids = torch.empty((b, ho, wo, 2), dtype=torch.float32,
-                         device=g.device)
+    dgrids = torch.empty(grids.shape, dtype=torch.float32, device=g.device)
     if dgrids.numel():
-        _run("dvsg_warp_f32_diff_bwd", (g, dximg, dyimg, grids, dgrids),
-             (b, h, w, c, ho, wo), g.device)
+        _run("dvsg_warp_f32_diff_bwd", (g, frames, grids, dgrids),
+             _dims(frames, grids), g.device)
         LAUNCHES_DIFF_BWD += 1
     return dgrids
 
@@ -186,60 +197,65 @@ def bilinear_warp_batch(frames: torch.Tensor, grids: torch.Tensor
     return out.to(frames.dtype)
 
 
-def warp_diff_forward(frames: torch.Tensor, grids: torch.Tensor):
-    """(out, dximg, dyimg) of the differentiable warp's forward, f32: the
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+def warp_diff_forward(frames: torch.Tensor, grids: torch.Tensor
+                      ) -> torch.Tensor:
+    """The differentiable warp's forward, values only: the forward kernel
+    on CUDA tensors (f32), the plain warp on CPU tensors."""
     _check(frames, grids)
     if not frames.is_cuda:
-        return warp_diff_forward_plain(frames, grids)
+        return bilinear_warp_batch_plain(frames, grids)
     return _launch_diff_fwd(_as_f32(frames), _as_f32(grids))
 
 
-def warp_diff_backward(g: torch.Tensor, dximg: torch.Tensor,
-                       dyimg: torch.Tensor, grids: torch.Tensor,
-                       h: int, w: int) -> torch.Tensor:
-    """The grid cotangent (B, Ho, Wo, 2) f32 from the output cotangent and
-    the forward's derivative images."""
-    if (g.shape != dximg.shape or dyimg.shape != dximg.shape
-            or grids.shape != (*dximg.shape[:3], 2)):
+def warp_diff_backward(g: torch.Tensor, frames: torch.Tensor,
+                       grids: torch.Tensor) -> torch.Tensor:
+    """The grid cotangent (B, Ho, Wo, 2) from the output cotangent, the
+    frames and the grids: the backward kernel on CUDA tensors (f32), its
+    plain version on CPU tensors."""
+    _check(frames, grids)
+    if g.shape != (*grids.shape[:3], frames.shape[3]):
         raise ValueError(
-            f"cotangent {tuple(g.shape)}, derivative images "
-            f"{tuple(dximg.shape)} / {tuple(dyimg.shape)} and grids "
-            f"{tuple(grids.shape)} do not belong to one warp")
+            f"cotangent {tuple(g.shape)}, frames {tuple(frames.shape)} and "
+            f"grids {tuple(grids.shape)} do not belong to one warp")
     if not g.is_cuda:
-        return warp_diff_backward_plain(g, dximg, dyimg, grids, h, w)
-    return _launch_diff_bwd(_as_f32(g), _as_f32(dximg), _as_f32(dyimg),
-                            _as_f32(grids), h, w)
+        return warp_diff_grid_grad_plain(g, frames, grids)
+    return _launch_diff_bwd(_as_f32(g), _as_f32(frames), _as_f32(grids))
 
 
 class _WarpGridsDiff(torch.autograd.Function):
     """out = warp(frames, grids) with d(out)/d(grids) only; ``plain``
-    selects the plain halves whatever the device."""
+    selects the plain halves whatever the device. Either way the forward
+    keeps the frames and the grids and nothing it computed."""
 
     @staticmethod
     def forward(ctx, frames, grids, plain):
-        fwd = warp_diff_forward_plain if plain else warp_diff_forward
-        out, dximg, dyimg = fwd(frames, grids)
-        ctx.save_for_backward(dximg, dyimg, grids)
-        ctx.src_hw = (frames.shape[1], frames.shape[2])
+        if plain or not frames.is_cuda:
+            kept = frames, grids
+            out = bilinear_warp_batch_plain(frames, grids)
+        else:
+            # Keep what the kernels read, so the backward converts nothing
+            # again.
+            kept = _as_f32(frames), _as_f32(grids)
+            out = _launch_diff_fwd(*kept)
+        ctx.save_for_backward(*kept)
         ctx.plain = plain
+        ctx.grids_dtype = grids.dtype
         return out.to(frames.dtype)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        dximg, dyimg, grids = ctx.saved_tensors
-        bwd = warp_diff_backward_plain if ctx.plain else warp_diff_backward
-        dgrids = bwd(g, dximg, dyimg, grids, *ctx.src_hw)
-        return None, dgrids.to(grids.dtype), None
+        frames, grids = ctx.saved_tensors
+        bwd = warp_diff_grid_grad_plain if ctx.plain else warp_diff_backward
+        return None, bwd(g, frames, grids).to(ctx.grids_dtype), None
 
 
 def bilinear_warp_batch_grids_diff_plain(frames: torch.Tensor,
                                          grids: torch.Tensor
                                          ) -> torch.Tensor:
     """The plain PyTorch version of the differentiable warp (any device):
-    the same derivative images, mask and missing frame gradient as the
-    kernels, not autograd through the four-tap gather."""
+    the same recomputed derivative images, mask and missing frame gradient
+    as the kernels, not autograd through the four-tap gather."""
     _check(frames, grids)
     return _WarpGridsDiff.apply(frames, grids, True)
 
@@ -249,8 +265,7 @@ def bilinear_warp_batch_grids_diff(frames: torch.Tensor, grids: torch.Tensor
     """The warp of ``bilinear_warp_batch``, differentiable with respect to
     ``grids`` only (the frames' gradient is None).
 
-    With no gradient to record it is the plain warp (no derivative images
-    are made).
+    With no gradient to record it is ``bilinear_warp_batch``.
     """
     _check(frames, grids)
     if not (torch.is_grad_enabled() and grids.requires_grad):

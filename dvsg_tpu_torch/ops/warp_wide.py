@@ -3,12 +3,15 @@ hot op) and from dense grids.
 
 ``warp_u8_offsets`` takes uint8 (B, H, W, C) frames and the CNN's coarse
 (B, gh, gw, 2) normalized offsets and returns the warped uint8 frames. On
-a CUDA tensor it launches the hand-written kernel
-``csrc/warp_u8_offsets.cu``; on a CPU tensor it runs the plain version,
+a CUDA tensor it launches one of the two hand-written kernels of
+``csrc/warp_u8_offsets.cu``, picked from the shape alone
+(``takes_packed_kernel``): the packed kernel for RGB frames whose width is
+a multiple of four, the general-shape kernel for everything else. On a CPU
+tensor it runs the plain version,
 ``warp_quantize_oracle(frames, grid_from_offsets(offsets, H, W, crop))``.
-The two agree within 1 LSB: the kernel computes the same coordinates
-through a different order of f32 operations, and rounds its 0..255
-accumulator where the plain version rounds (x / 255) * 255.
+Kernels and plain version agree within 1 LSB: the kernels compute the same
+coordinates through a different order of f32 operations, and round their
+0..255 accumulator where the plain version rounds (x / 255) * 255.
 
 ``warp_u8_batch`` is the dense-grid form: uint8 (B, H, W, C) frames and
 (B, Ho, Wo, 2) normalized grids → uint8 (B, Ho, Wo, C), any output size;
@@ -28,8 +31,10 @@ from dvsg_tpu_torch.ops import resize as resize_ops
 from dvsg_tpu_torch.ops import warp_ref
 
 # Kernel launches made by warp_u8_offsets in this process (a run reads it
-# before and after to show its main path went through the kernel).
+# before and after to show its main path went through the kernel), and
+# those of them that were the packed kernel.
 LAUNCHES = 0
+LAUNCHES_PACKED = 0
 # Kernel launches made by warp_u8_batch.
 LAUNCHES_BATCH = 0
 
@@ -70,25 +75,44 @@ def offset_rows(offsets: torch.Tensor, h: int) -> torch.Tensor:
                         offsets.to(torch.float32)).contiguous()
 
 
+def takes_packed_kernel(shape) -> bool:
+    """Whether (B, H, W, C) frames go to the packed kernel: RGB, rows of
+    whole four-pixel groups, in-frame byte offsets that fit 32 bits, and a
+    (W tiles, H, B) launch the device accepts. Every other shape goes to
+    the general-shape kernel."""
+    b, h, w, c = shape
+    return (c == 3 and w % 4 == 0 and h * w * c < 2 ** 31
+            and b <= 65535 and h <= 65535)
+
+
 @functools.cache
-def _kernel():
-    """The C launcher of csrc/warp_u8_offsets.cu (built at first use)."""
+def _kernels():
+    """The C launchers of csrc/warp_u8_offsets.cu (built at first use):
+    (general, packed)."""
     from dvsg_tpu_torch.ops import _build
-    fn = _build.library("warp_u8_offsets").dvsg_warp_u8_offsets
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.library("warp_u8_offsets")
+    fns = lib.dvsg_warp_u8_offsets, lib.dvsg_warp_u8_offsets_packed
+    for fn in fns:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fns
 
 
 def _launch(frames_u8: torch.Tensor, rows: torch.Tensor,
-            border_crop: float) -> torch.Tensor:
-    fn = _kernel()
+            border_crop: float, packed: bool | None = None) -> torch.Tensor:
+    """One kernel launch on contiguous CUDA frames and their offset rows;
+    ``packed`` overrides the choice by shape (timing the two side by side)."""
+    global LAUNCHES, LAUNCHES_PACKED
+    if packed is None:
+        packed = takes_packed_kernel(frames_u8.shape)
     b, h, w, c = frames_u8.shape
     out = torch.empty_like(frames_u8)
     if out.numel() == 0:
         return out
+    if packed and frames_u8.data_ptr() % 4:
+        frames_u8 = frames_u8.clone()      # a view off the word boundary
+    fn = _kernels()[packed]
     stream = torch.cuda.current_stream(frames_u8.device).cuda_stream
     with torch.cuda.device(frames_u8.device):
         rc = fn(frames_u8.data_ptr(), rows.data_ptr(), out.data_ptr(),
@@ -96,8 +120,8 @@ def _launch(frames_u8: torch.Tensor, rows: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"warp_u8_offsets kernel launch failed: CUDA "
                            f"error {rc}")
-    global LAUNCHES
     LAUNCHES += 1
+    LAUNCHES_PACKED += packed
     return out
 
 

@@ -22,33 +22,64 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("shape,gw,amp,crop", [
-    ((2, 37, 150, 3), 8, 0.2, 0.0),
-    ((2, 37, 150, 3), 8, 0.2, 0.1),
-    ((3, 64, 96, 1), 16, 1.5, 0.0),
-    ((1, 33, 257, 4), 5, 0.5, 0.25),
+@pytest.mark.parametrize("shape,grid,amp,crop", [
+    ((2, 37, 150, 3), (6, 8), 0.2, 0.0),          # W % 4 != 0: general
+    ((2, 37, 150, 3), (6, 8), 0.2, 0.1),
+    ((3, 97, 131, 3), (16, 16), 1.5, 0.0),
+    ((3, 64, 96, 1), (6, 16), 1.5, 0.0),          # C != 3: general
+    ((1, 33, 260, 4), (6, 5), 0.5, 0.25),
+    ((2, 37, 152, 3), (6, 8), 0.2, 0.0),          # RGB, W % 4 == 0: packed
+    ((2, 37, 152, 3), (6, 8), 0.2, 0.1),
+    ((3, 64, 96, 3), (8, 8), 1.5, 0.0),
+    ((1, 33, 260, 3), (32, 32), 0.5, 0.25),
+    ((2, 5, 4, 3), (3, 2), 1.5, 0.0),             # one pixel group a row
 ])
-def test_warp_u8_offsets_kernel_matches_plain(dev, shape, gw, amp, crop):
+def test_warp_u8_offsets_kernels_match_plain(dev, shape, grid, amp, crop):
+    """The kernel the wrapper picks for the shape, and on the packed
+    kernel's shapes the general-shape kernel too, within 1 LSB of plain."""
     rng = np.random.default_rng(7)
     frames = torch.from_numpy(
         rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
     offs = torch.from_numpy(rng.uniform(
-        -amp, amp, (shape[0], 6, gw, 2)).astype(np.float32)).to(dev)
-    before = warp_wide.LAUNCHES
-    got = warp_wide.warp_u8_offsets(frames, offs, crop)
-    assert warp_wide.LAUNCHES == before + 1
+        -amp, amp, (shape[0], *grid, 2)).astype(np.float32)).to(dev)
+    packed = warp_wide.takes_packed_kernel(shape)
+    before = warp_wide.LAUNCHES, warp_wide.LAUNCHES_PACKED
+    outs = [warp_wide.warp_u8_offsets(frames, offs, crop)]
+    assert warp_wide.LAUNCHES == before[0] + 1
+    assert warp_wide.LAUNCHES_PACKED == before[1] + packed
+    if packed:
+        outs.append(warp_wide._launch(
+            frames, warp_wide.offset_rows(offs, shape[1]), crop,
+            packed=False))
     want = warp_wide.warp_u8_offsets_plain(frames, offs, crop)
     torch.cuda.synchronize()
-    diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
-    assert got.shape == frames.shape and got.dtype == torch.uint8
-    assert int(diff.max()) <= 1
+    for got in outs:
+        diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+        assert got.shape == frames.shape and got.dtype == torch.uint8
+        assert int(diff.max()) <= 1
+
+
+def test_warp_u8_offsets_packed_kernel_refuses_other_shapes(dev):
+    """Forced onto a shape it does not take, the packed kernel's launcher
+    refuses and the wrapper raises; a view off the word boundary is moved,
+    not refused."""
+    rng = np.random.default_rng(6)
+    flat = torch.from_numpy(rng.integers(
+        0, 256, 2 * 8 * 12 * 3 + 1, dtype=np.uint8)).to(dev)
+    frames = flat[1:].view(2, 8, 12, 3)            # data_ptr % 4 == 1
+    offs = torch.zeros((2, 4, 4, 2), device=dev)
+    assert torch.equal(warp_wide.warp_u8_offsets(frames, offs), frames)
+    rows = warp_wide.offset_rows(offs, 8)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        warp_wide._launch(frames[:, :, :10].contiguous(), rows, 0.0,
+                          packed=True)
 
 
 def test_warp_u8_offsets_noncontiguous_frames(dev):
     rng = np.random.default_rng(8)
     base = torch.from_numpy(
-        rng.integers(0, 256, (2, 40, 300, 3), dtype=np.uint8)).to(dev)
-    frames = base[:, :, ::2]                       # strided view
+        rng.integers(0, 256, (2, 40, 304, 3), dtype=np.uint8)).to(dev)
+    frames = base[:, :, ::2]                       # strided view, W = 152
     offs = torch.zeros((2, 4, 4, 2), device=dev)
     got = warp_wide.warp_u8_offsets(frames, offs)
     torch.cuda.synchronize()
@@ -90,9 +121,10 @@ def test_warp_f32_kernel_matches_plain(dev, shape, out_hw, spill):
 
 @pytest.mark.parametrize("shape,out_hw,spill", SHAPES)
 def test_warp_f32_diff_kernels_match_plain(dev, shape, out_hw, spill):
-    """Values, derivative images and the grid cotangent of the
-    differentiable warp: forward and backward kernels against the plain
-    autograd.Function's halves."""
+    """Values and the grid cotangent of the differentiable warp: the
+    forward kernel (values only) and the backward kernel (cotangent,
+    frames, grids) against their plain versions, called directly and
+    through autograd, which keeps no derivative image."""
     rng = np.random.default_rng(10)
     frames = torch.from_numpy(rng.random(shape, dtype=np.float32)).to(dev)
     grids = _grids(rng, shape[0], *out_hw, spill, dev).requires_grad_()
@@ -101,21 +133,26 @@ def test_warp_f32_diff_kernels_match_plain(dev, shape, out_hw, spill):
     fwd, bwd = (warp_bilinear.LAUNCHES_DIFF_FWD,
                 warp_bilinear.LAUNCHES_DIFF_BWD)
     out = warp_bilinear.bilinear_warp_batch_grids_diff(frames, grids)
+    kept = sorted(tuple(t.shape) for t in out.grad_fn.saved_tensors)
+    assert kept == sorted([tuple(frames.shape), tuple(grids.shape)])
     out.backward(cot)
     assert warp_bilinear.LAUNCHES_DIFF_FWD == fwd + 1
     assert warp_bilinear.LAUNCHES_DIFF_BWD == bwd + 1
     g = grids.detach()
-    o_k, dx_k, dy_k = warp_bilinear.warp_diff_forward(frames, g)
-    o_p, dx_p, dy_p = warp_bilinear.warp_diff_forward_plain(frames, g)
-    want = warp_bilinear.warp_diff_backward_plain(
-        cot, dx_p, dy_p, g, shape[1], shape[2])
+    o_k = warp_bilinear.warp_diff_forward(frames, g)
+    o_p = warp_bilinear.bilinear_warp_batch_plain(frames, g)
+    d_k = warp_bilinear.warp_diff_backward(cot, frames, g)
+    want = warp_bilinear.warp_diff_grid_grad_plain(cot, frames, g)
+    assert warp_bilinear.LAUNCHES_DIFF_FWD == fwd + 2
+    assert warp_bilinear.LAUNCHES_DIFF_BWD == bwd + 2
     torch.cuda.synchronize()
     assert float((out.detach() - o_p).abs().max()) <= 1e-5
     assert float((o_k - o_p).abs().max()) <= 1e-5
-    assert float((dx_k - dx_p).abs().max()) <= 1e-5
-    assert float((dy_k - dy_p).abs().max()) <= 1e-5
     scale = 0.5 * (max(shape[1], shape[2]) - 1)
     assert float((grids.grad - want).abs().max()) <= 1e-5 * scale * shape[3]
+    assert float((d_k - want).abs().max()) <= 1e-5 * scale * shape[3]
+    with pytest.raises(ValueError, match="one warp"):
+        warp_bilinear.warp_diff_backward(cot[:, :-1], frames, g)
 
 
 def test_warp_f32_diff_frames_get_no_gradient(dev):

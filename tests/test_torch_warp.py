@@ -141,3 +141,41 @@ def test_offset_rows_is_the_vertical_upsample():
         8, 150)))
     torch.testing.assert_close(torch.einsum("qw,bpwk->bpqk", cm, rows),
                                dense, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,packed", [
+    ((16, 720, 1280, 3), True),        # the stabilize path's chunk
+    ((16, 1080, 1920, 3), True),
+    ((2, 40, 152, 3), True),
+    ((16, 480, 854, 3), False),        # 854 * 3 is no multiple of 4
+    ((3, 97, 131, 3), False),
+    ((2, 40, 150, 3), False),          # W * C % 4 == 0 but W % 4 != 0
+    ((2, 40, 152, 1), False),          # the packed kernel is RGB only
+    ((2, 40, 152, 4), False),
+    ((1, 32768, 32768, 3), False),     # a frame over 2^31 bytes
+    ((1, 65536, 8, 3), False),         # launch dimensions the device refuses
+    ((65536, 8, 8, 3), False),
+])
+def test_kernel_choice_is_by_shape_alone(shape, packed):
+    """The wrapper's pick between the packed and the general-shape CUDA
+    kernel is a function of the frames' shape."""
+    assert twarp_wide.takes_packed_kernel(shape) is packed
+    assert twarp_wide.takes_packed_kernel(torch.Size(shape)) is packed
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 152, 3), (2, 40, 150, 3),
+                                   (1, 24, 64, 1), (1, 24, 64, 4)])
+def test_plain_within_1lsb_of_reference_oracle_on_both_kernels_shapes(shape):
+    """Shapes of the packed and of the general kernel alike run the plain
+    version on the CPU, within 1 LSB of the reference oracle on the
+    reference's grid."""
+    b, h, w, c = shape
+    frames, offs = _inputs(9, b=b, h=h, w=w, c=c, amp=0.3)
+    grids = np.stack([np.asarray(jgrid.grid_from_offsets(
+        jnp.asarray(o), h, w, border_crop=0.05)) for o in offs])
+    ref = np.asarray(jwarp_ref.warp_quantize_oracle(jnp.asarray(frames),
+                                                    jnp.asarray(grids)))
+    ours = twarp_wide.warp_u8_offsets(torch.from_numpy(frames),
+                                      torch.from_numpy(offs), 0.05).numpy()
+    assert ours.shape == frames.shape
+    assert np.abs(ours.astype(int) - ref).max() <= 1

@@ -202,15 +202,72 @@ def test_warp_batch_diff_without_grad_is_the_plain_warp():
 def test_derivative_images_are_zero_at_the_far_border():
     """The second tap is clamped, so it equals the first at the right and
     bottom borders and the derivative there is 0, as with the reference's
-    replication padding."""
+    replication padding; so is the gradient the backward recomputes."""
     rng = np.random.default_rng(9)
     frames = torch.from_numpy(rng.random((1, 6, 7, 3), dtype=np.float32))
     grids = torch.from_numpy(_ident(6, 7)[None].copy())
-    _, dx, dy = twb.warp_diff_forward(frames, grids)
+    out, dx, dy = twb.warp_diff_forward_plain(frames, grids)
     assert torch.all(dx[:, :, -1] == 0) and torch.all(dy[:, -1] == 0)
     assert dx[:, :, :-1].abs().max() > 0
+    torch.testing.assert_close(twb.warp_diff_forward(frames, grids), out,
+                               rtol=0, atol=0)
+    cot = torch.from_numpy(rng.standard_normal((1, 6, 7, 3)).astype(
+        np.float32))
+    dgrids = twb.warp_diff_backward(cot, frames, grids)
+    assert torch.all(dgrids[:, :, -1, 0] == 0)
+    assert torch.all(dgrids[:, -1, :, 1] == 0)
+    assert dgrids[:, 1:-1, 1:-1].abs().min() > 0
     with pytest.raises(ValueError, match="one warp"):
-        twb.warp_diff_backward(dx[:, :-1], dx, dy, grids, 6, 7)
+        twb.warp_diff_backward(cot[:, :-1], frames, grids)
+
+
+@pytest.mark.parametrize("spill", [1.0, 1.15])
+def test_grid_grad_plain_is_the_two_plain_halves_and_the_pallas_vjp(spill):
+    """The backward's plain version (cotangent, frames, grids → dgrids)
+    equals the contraction half applied to the forward half's derivative
+    images to the bit, is what autograd returns, and agrees with the
+    reference's Pallas custom VJP on a random cotangent."""
+    frames, grids, _ = _grad_case(seed=12, spill=spill)
+    rng = np.random.default_rng(13)
+    cot = rng.standard_normal(frames.shape).astype(np.float32)
+    f, g, c = (torch.from_numpy(a) for a in (frames, grids, cot))
+    got = twb.warp_diff_grid_grad_plain(c, f, g)
+    _, dx, dy = twb.warp_diff_forward_plain(f, g)
+    halves = twb.warp_diff_backward_plain(c, dx, dy, g, *frames.shape[1:3])
+    torch.testing.assert_close(got, halves, rtol=0, atol=0)
+    torch.testing.assert_close(twb.warp_diff_backward(c, f, g), got,
+                               rtol=0, atol=0)
+    for fn in (twb.bilinear_warp_batch_grids_diff,
+               twb.bilinear_warp_batch_grids_diff_plain):
+        gr = g.clone().requires_grad_()
+        fn(f, gr).backward(c)
+        torch.testing.assert_close(gr.grad, got, rtol=0, atol=0)
+
+    _, vjp = jax.vjp(lambda gg: jpallas.bilinear_warp_batch_grids_diff(
+        jnp.asarray(frames), gg, 126, jpallas.TILE_H, True, guarded=False),
+        jnp.asarray(grids))
+    want = np.asarray(vjp(jnp.asarray(cot))[0])
+    print(f"grid_grad_plain[spill {spill}]: max |diff| "
+          f"{np.abs(got.numpy() - want).max():.2e} of max |dgrid| "
+          f"{np.abs(want).max():.1f} (Pallas VJP)")
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-3,
+                               atol=ATOL_GRAD_PALLAS)
+
+
+@pytest.mark.parametrize("fn", ["dispatch", "plain"])
+def test_warp_batch_diff_keeps_no_derivative_image(fn):
+    """The forward under grad keeps the frames and the grids for the
+    backward and nothing else: no (B, Ho, Wo, C) derivative image."""
+    frames, grids, _ = _grad_case(seed=14, b=2, h=10, w=20)
+    grids = np.ascontiguousarray(grids[:, :7, :9])      # Ho, Wo != H, W
+    f = torch.from_numpy(frames)
+    g = torch.from_numpy(grids).requires_grad_()
+    warp = {"dispatch": twb.bilinear_warp_batch_grids_diff,
+            "plain": twb.bilinear_warp_batch_grids_diff_plain}[fn]
+    out = warp(f, g)
+    assert out.shape == (2, 7, 9, 3)
+    kept = sorted(tuple(t.shape) for t in out.grad_fn.saved_tensors)
+    assert kept == sorted([tuple(f.shape), tuple(g.shape)])
 
 
 @pytest.mark.parametrize("h,w,ho,wo,scale", [(24, 128, 24, 128, 0.3),
