@@ -14,7 +14,8 @@ on failure:
    path's shapes and at edge shapes: the uint8 kernels within 1 LSB (both
    offsets kernels, each on the shapes the wrapper sends it, and the
    general-shape one also on the packed kernel's), the f32 warps within
-   1e-5, the grid gradient within 1e-4 of the largest gradient;
+   1e-5, the grid gradient within 1e-4 of the largest gradient; both
+   dense-grid uint8 kernels on the packed kernel's shapes, byte-equal;
 3. the stabilize path, ``Stabilizer.stabilize_clip`` with T = 16 on a
    seeded 48-frame 1280x720 shaky clip, for both shipped presets at full
    width and depth: output shape and dtype, one launch of the packed
@@ -22,7 +23,8 @@ on failure:
    ``stabilize_stream`` with a resume record byte-identical to the clip
    path, the card within 1 LSB of the CPU path on a small clip, a positive
    PSNR gain, and the same chunk through ``warp_quantize_batch(grids=...)``
-   (the dense-grid kernel) within 1 LSB of the offsets kernel;
+   (the packed dense-grid kernel, one launch) within 1 LSB of the offsets
+   kernel;
 4. times of that path with CUDA events after warm-up: each chunk stage,
    the device chunk, end-to-end frames/s, where a stream's host time goes;
 5. the training path, ``train.loop.train`` from a seeded init at the full
@@ -38,9 +40,10 @@ on failure:
    optimizer; medians of 20) and of each kernel beside its bound, its
    plain version and ``F.grid_sample`` (timed here as a yardstick only;
    the port never calls it): medians of 20 single calls from a cold L2,
-   queued behind a long kernel. The two offsets kernels and the stage
-   variants of the general-shape one (each strips one part of it) are
-   timed in turns.
+   queued behind a long kernel. The two offsets kernels, the two
+   dense-grid uint8 kernels and the stage variants of each pair (each
+   strips one part of a kernel) are timed in turns, beside their SASS
+   lengths.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes every
@@ -210,6 +213,16 @@ def median_ms(fn, iters: int = 20, warmup: int = 3, cold: bool = True
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
+def time_in_turns(turns) -> dict:
+    """Median ms (``median_ms``) of each (name, fn) of ``turns``, in order
+    and then the first two again in reverse (A, B, ..., B, A): name →
+    list of readings."""
+    in_turns = {}
+    for name, fn in [*turns, *turns[1::-1]]:
+        in_turns.setdefault(name, []).append(median_ms(fn))
+    return in_turns
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the f32 rate."""
@@ -343,7 +356,8 @@ F32_CASES = (((64, 256, 256, 3), (256, 256), 1.0),
              ((3, 97, 131, 3), (75, 53), 1.4),
              ((2, 33, 257, 1), (61, 300), 2.0))
 U8_EDGE_CASES = (((3, 97, 131, 3), (75, 53), 1.4),
-                 ((2, 33, 257, 4), (61, 300), 2.0))
+                 ((2, 33, 257, 4), (61, 300), 2.0),
+                 ((2, 40, 152, 3), (36, 100), 1.4))
 
 
 def phase_dense_kernel_checks(rng, dev) -> dict:
@@ -398,18 +412,34 @@ def phase_dense_kernel_checks(rng, dev) -> dict:
         frames = torch.from_numpy(
             rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
         grids = smooth_grids(rng, shape[0], ho, wo, spill, dev)
-        out_k = warp_wide.warp_u8_batch(frames, grids)
+        packed = warp_wide.takes_packed_batch_kernel(shape, grids.shape)
+        pick = "packed" if packed else "general"
+        before = warp_wide.LAUNCHES_BATCH, warp_wide.LAUNCHES_BATCH_PACKED
+        outs = {pick: warp_wide.warp_u8_batch(frames, grids)}
+        if (warp_wide.LAUNCHES_BATCH - before[0],
+                warp_wide.LAUNCHES_BATCH_PACKED - before[1]) \
+                != (1, int(packed)):
+            raise AssertionError(f"{shape} did not take the {pick} "
+                                 f"dense-grid kernel")
+        if packed:
+            outs["general"] = warp_wide._launch_batch(frames, grids,
+                                                      packed=False)
         out_p = warp_wide.warp_u8_batch_plain(frames, grids)
         torch.cuda.synchronize()
-        diff = (out_k.to(torch.int16) - out_p.to(torch.int16)).abs()
-        maxd = int(diff.max())
-        share = float((diff > 0).float().mean())
-        log(f"  warp_u8_batch {shape} -> {ho}x{wo} spill {spill}: max "
-            f"|diff| {maxd} LSB, {share:.3e} of values differ")
-        if maxd > 1:
-            raise AssertionError(f"warp_u8_batch differs from plain by "
-                                 f"{maxd} LSB at {shape}")
-        worst["warp_u8_batch"] = max(worst["warp_u8_batch"], maxd)
+        for name, out_k in outs.items():
+            diff = (out_k.to(torch.int16) - out_p.to(torch.int16)).abs()
+            maxd = int(diff.max())
+            share = float((diff > 0).float().mean())
+            log(f"  warp_u8_batch[{name}] {shape} -> {ho}x{wo} spill "
+                f"{spill}: max |diff| {maxd} LSB, {share:.3e} of values "
+                f"differ")
+            if maxd > 1:
+                raise AssertionError(f"warp_u8_batch {name} kernel differs "
+                                     f"from plain by {maxd} LSB at {shape}")
+            worst["warp_u8_batch"] = max(worst["warp_u8_batch"], maxd)
+        if packed and not torch.equal(outs["packed"], outs["general"]):
+            raise AssertionError(f"the packed and the general dense-grid "
+                                 f"kernels differ at {shape}")
     return worst
 
 
@@ -453,6 +483,10 @@ def phase_kernel_checks(rng, dev) -> int:
                 packed=False)
         out_p = warp_wide.warp_u8_offsets_plain(frames, offs, crop)
         torch.cuda.synchronize()
+        if packed:
+            n_apart = int((outs["packed"] != outs["general"]).sum())
+            log(f"  warp_u8_offsets {shape}: packed vs general kernel, "
+                f"{n_apart} bytes differ")
         for name, out_k in outs.items():
             diff = (out_k.to(torch.int16) - out_p.to(torch.int16)).abs()
             maxd = int(diff.max())
@@ -516,18 +550,20 @@ def phase_main_path(seed: int, dev):
                 cfg, stab.model, frames, stab._initial_halo(clip[0]))
             grids = grid_ops.grid_from_offsets(offsets, HEIGHT, WIDTH,
                                                cfg.border_crop)
-            warp_wide.LAUNCHES_BATCH = 0
+            warp_wide.LAUNCHES_BATCH = warp_wide.LAUNCHES_BATCH_PACKED = 0
             dense = warp_ops.warp_quantize_batch(frames, grids=grids)
             torch.cuda.synchronize()
             n_dense = warp_wide.LAUNCHES_BATCH
+            n_dense_packed = warp_wide.LAUNCHES_BATCH_PACKED
         launches_dense += n_dense
         dense_lsb = int((dense.to(torch.int16)
                          - b1_out.to(torch.int16)).abs().max())
         log(f"  [{preset}] warp_quantize_batch(grids=) on the first chunk: "
-            f"{n_dense} launch, max {dense_lsb} LSB from the offsets "
-            f"kernel")
-        if n_dense != 1 or dense_lsb > 1:
+            f"{n_dense} launch ({n_dense_packed} of the packed kernel), max "
+            f"{dense_lsb} LSB from the offsets kernel")
+        if n_dense != 1 or n_dense_packed != 1 or dense_lsb > 1:
             raise AssertionError(f"dense-grid path: {n_dense} launches, "
+                                 f"{n_dense_packed} of the packed kernel, "
                                  f"{dense_lsb} LSB")
 
         cpu = stab_lib.Stabilizer(cfg, params, device="cpu")
@@ -550,7 +586,8 @@ def phase_main_path(seed: int, dev):
                            "psnr_in_db": p_in, "psnr_out_db": p_out,
                            "psnr_gain_db": p_out - p_in,
                            "card_vs_cpu_max_lsb": cpu_lsb,
-                           "dense_vs_offsets_max_lsb": dense_lsb}
+                           "dense_vs_offsets_max_lsb": dense_lsb,
+                           "dense_packed_launches": n_dense_packed}
         stabs[preset] = stab
     return launches, launches_dense, results, stabs, clip
 
@@ -654,10 +691,7 @@ def time_b1(frames, offsets, crop) -> dict:
                                                   packed=True))]
     turns += [(name, lambda p=p, k=k: launch_b1_stage(
         frames, rows, out, crop, p, k)) for p, k, name in B1_STAGES]
-    turns += turns[1::-1]
-    in_turns = {}
-    for name, fn in turns:
-        in_turns.setdefault(name, []).append(median_ms(fn))
+    in_turns = time_in_turns(turns)
     kernel_ms = float(np.mean(in_turns["packed"]))
     general_ms = float(np.mean(in_turns["general"]))
     plain_ms = median_ms(lambda: warp_wide.warp_u8_offsets_plain(
@@ -986,6 +1020,66 @@ def phase_train_times(seed: int, results: dict) -> None:
                                     1e3 * TRAIN_BATCH / step_ms})
 
 
+# Stage variants of the two dense-grid uint8 kernels, (packed, stage,
+# name): what each leaves out of its kernel (the Stage values of
+# csrc/warp_u8_batch.cu).
+B4_STAGES = ((0, 4, "general_index32_3d_launch"), (1, 1, "packed_no_taps"),
+             (1, 2, "packed_no_grid"), (1, 3, "packed_no_taps_no_grid"),
+             (1, 8, "packed_no_stores"))
+
+
+def launch_b4_stage(frames, grids, out, packed: int, stage: int) -> None:
+    fn = _build.library("warp_u8_batch").dvsg_warp_u8_batch_probe
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    b, h, w, c = frames.shape
+    rc = fn(frames.data_ptr(), grids.data_ptr(), out.data_ptr(), b, h, w, c,
+            grids.shape[1], grids.shape[2], stage, packed,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dense-grid kernel stage {stage} (packed "
+                           f"{packed}): CUDA error {rc}")
+
+
+def time_b4(frames, grids, bound_ms: float) -> dict:
+    """The two dense-grid uint8 kernels and their stage variants, in turns,
+    each beside the length of its SASS."""
+    b, _, _, c = frames.shape
+    out = torch.empty((b, grids.shape[1], grids.shape[2], c),
+                      dtype=torch.uint8, device=frames.device)
+    turns = [("general", lambda: warp_wide._launch_batch(frames, grids,
+                                                         packed=False)),
+             ("packed", lambda: warp_wide._launch_batch(frames, grids,
+                                                        packed=True))]
+    turns += [(name, lambda p=p, k=k: launch_b4_stage(
+        frames, grids, out, p, k)) for p, k, name in B4_STAGES]
+    in_turns = time_in_turns(turns)
+    counts = sass_counts("warp_u8_batch")
+
+    def sass(packed: int, stage: int):
+        kernel = ("warp_u8_batch_packed_kernel" if packed
+                  else "warp_u8_batch_kernel")
+        tag = f"{len(kernel)}{kernel}ILi{stage}E"
+        return next((n for k, n in counts.items() if tag in k), None)
+
+    sass_of = {"general": sass(0, 0), "packed": sass(1, 0),
+               **{name: sass(p, k) for p, k, name in B4_STAGES}}
+    kernel_ms = float(np.mean(in_turns["packed"]))
+    general_ms = float(np.mean(in_turns["general"]))
+    log(f"  warp_u8_batch kernels in turns, medians of 20 from a cold L2: "
+        f"packed {kernel_ms:.4f} ms = {100 * bound_ms / kernel_ms:.1f} % of "
+        f"the bound {bound_ms:.5f} ms; general-shape {general_ms:.4f} ms")
+    log("  in turns, ms (SASS instructions): " + "; ".join(
+        f"{k} {' / '.join(f'{v:.4f}' for v in vs)} ({sass_of[k]})"
+        for k, vs in in_turns.items()))
+    if not kernel_ms < general_ms:
+        raise AssertionError("the packed dense-grid kernel is no faster "
+                             "than the general-shape one on the 720p chunk")
+    return {"kernel_ms": kernel_ms, "general_kernel_ms": general_ms,
+            "in_turns_ms": in_turns, "sass": sass_of}
+
+
 def time_dense_kernels(rng, dev) -> dict:
     """Each dense-grid kernel alone at its path's shape (quality width:
     64 rendered frames and 16 loss frames of 256^2 x 3; one 720p chunk
@@ -1068,6 +1162,7 @@ def time_dense_kernels(rng, dev) -> dict:
             lambda: warp_wide.warp_u8_batch_plain(frames8, grids), iters=10),
         "library_ms": median_ms(lambda: lib(nchw, grids)),
         "bound_ms": bound_ms, "bound_by": by, "shape": [b, h, w, c]}
+    recs["warp_u8_batch"].update(time_b4(frames8, grids, bound_ms))
     warm = {
         "warp_f32": lambda: warp_bilinear.bilinear_warp_batch(
             frames64, grids64),
@@ -1087,7 +1182,7 @@ def time_dense_kernels(rng, dev) -> dict:
             f"{r['library_ms']:.4f} ms"
             + (f"; warp_f32's kernel on the same inputs "
                f"{r['general_kernel_ms']:.4f} ms"
-               if "general_kernel_ms" in r else ""))
+               if name == "warp_f32_diff_fwd" else ""))
     return recs
 
 

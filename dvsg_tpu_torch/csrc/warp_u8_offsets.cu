@@ -45,9 +45,11 @@
 //   exactly, so a pair never leaves its row. The offset rows are read as
 //   float2. Rounding is one cvt.rni.sat.u8.f32 (round half to even,
 //   saturate). The coordinate chain keeps the general kernel's f32 order,
-//   so the two kernels give the same bytes. What was timed and lost: lanes
-//   on neighbouring pixels with the bytes staged through shared memory
-//   (fewer load transactions, more instructions: slower), reloading the
+//   so the two kernels give the same bytes. The tap fetch and the rounding
+//   are warp_u8_tail.cuh's, shared with warp_u8_batch.cu. What was timed
+//   and lost: lanes on neighbouring pixels with the bytes staged through
+//   shared memory (fewer load transactions, more instructions: slower),
+//   reloading the
 //   offset rows only when the coarse cell changes (a branch a pixel), and
 //   byte-to-float by bit pattern instead of a conversion (no change).
 // * warp_u8_offsets_kernel, the general-shape kernel: one thread per
@@ -58,6 +60,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_u8_tail.cuh"
 
 namespace {
 
@@ -195,32 +199,6 @@ int launch_general(const void* frames, const void* rows, void* out, int b,
 // A block is four warps, each on 128 consecutive pixels of its own row.
 constexpr int kPackX = 32;
 constexpr int kPackY = 4;
-
-// Two horizontally adjacent RGB taps: six bytes that start ``shift`` / 8
-// bytes into the aligned 32-bit word at ``p``.
-__device__ __forceinline__ void load_tap_pair(
-    const uint32_t* __restrict__ p, unsigned shift, float (&v0)[3],
-    float (&v1)[3]) {
-  const uint32_t w0 = __ldg(p);
-  const uint32_t w1 = __ldg(p + 1);
-  // Six bytes reach the third word only when they start at its byte 3.
-  const uint32_t w2 = shift == 24 ? __ldg(p + 2) : 0u;
-  const uint32_t lo = __funnelshift_r(w0, w1, shift);   // bytes 0..3
-  const uint32_t hi = __funnelshift_r(w1, w2, shift);   // bytes 4..7
-  v0[0] = static_cast<float>(lo & 0xffu);
-  v0[1] = static_cast<float>((lo >> 8) & 0xffu);
-  v0[2] = static_cast<float>((lo >> 16) & 0xffu);
-  v1[0] = static_cast<float>(lo >> 24);
-  v1[1] = static_cast<float>(hi & 0xffu);
-  v1[2] = static_cast<float>((hi >> 8) & 0xffu);
-}
-
-// Round half to even and saturate to 0..255 in one instruction.
-__device__ __forceinline__ uint32_t round_u8(float acc) {
-  uint32_t q;
-  asm("cvt.rni.sat.u8.f32 %0, %1;" : "=r"(q) : "f"(acc));
-  return q;
-}
 
 template <int kStage>
 __global__ void __launch_bounds__(kPackX * kPackY)

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and builds on
 first use into its own shared library (``library``; ``build`` compiles
 several sources concurrently) under ``build/dvsg_tpu_torch/`` at
-the root of the checkout, named by a hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. A failed
+the root of the checkout, named by a hash of its source, the ``csrc/``
+headers it includes and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is. A failed
 build raises with nvcc's stderr; a build that succeeds leaves ptxas's
 report (registers, shared memory and spills of every kernel) in
 ``PTXAS_LOG``.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,6 +26,9 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "dvsg_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# A quoted #include: a header of csrc/ (nvcc looks beside the source).
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas's report for each source this process compiled (none for a library
@@ -46,10 +51,22 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[str, str]:
-    """(source path, hash-named library path) of ``csrc/<name>.cu``."""
+    """(source path, hash-named library path) of ``csrc/<name>.cu``. The
+    hash covers the flags, the source and every header it includes with
+    quotes, and theirs in turn."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [src], set()
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        digest.update(text)
+        todo += [os.path.join(os.path.dirname(path), inc.decode())
+                 for inc in _INCLUDE.findall(text)]
     return src, os.path.join(BUILD_DIR,
                              f"{name}-{digest.hexdigest()[:12]}.so")
 

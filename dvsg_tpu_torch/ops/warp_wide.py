@@ -14,9 +14,13 @@ coordinates through a different order of f32 operations, and round their
 0..255 accumulator where the plain version rounds (x / 255) * 255.
 
 ``warp_u8_batch`` is the dense-grid form: uint8 (B, H, W, C) frames and
-(B, Ho, Wo, 2) normalized grids → uint8 (B, Ho, Wo, C), any output size;
-``csrc/warp_u8_batch.cu`` on a CUDA tensor, ``warp_quantize_oracle`` on a
-CPU tensor, the same 1 LSB apart.
+(B, Ho, Wo, 2) normalized grids → uint8 (B, Ho, Wo, C), any output size.
+On a CUDA tensor it launches one of the two kernels of
+``csrc/warp_u8_batch.cu``, picked from the shapes alone
+(``takes_packed_batch_kernel``): the packed kernel for RGB frames whose
+input and output widths are multiples of four, the general-shape kernel
+otherwise. The two give the same bytes. On a CPU tensor it runs
+``warp_quantize_oracle``, within 1 LSB of the kernels.
 """
 
 from __future__ import annotations
@@ -35,8 +39,10 @@ from dvsg_tpu_torch.ops import warp_ref
 # those of them that were the packed kernel.
 LAUNCHES = 0
 LAUNCHES_PACKED = 0
-# Kernel launches made by warp_u8_batch.
+# Kernel launches made by warp_u8_batch, and those of them that were the
+# packed kernel.
 LAUNCHES_BATCH = 0
+LAUNCHES_BATCH_PACKED = 0
 
 
 def _check(frames_u8: torch.Tensor, offsets: torch.Tensor,
@@ -161,27 +167,51 @@ def warp_u8_batch_plain(frames_u8: torch.Tensor, grids: torch.Tensor
     return warp_ref.warp_quantize_oracle(frames_u8, grids)
 
 
+def takes_packed_batch_kernel(frames_shape, grids_shape) -> bool:
+    """Whether (B, H, W, C) frames warped through (B, Ho, Wo, 2) grids go
+    to the packed dense-grid kernel: RGB, input and output rows of whole
+    four-pixel groups, input and output frames whose byte offsets fit 32
+    bits, and a (Wo tiles, Ho, B) launch the device accepts. Every other
+    shape goes to the general-shape kernel."""
+    b, h, w, c = frames_shape
+    ho, wo = grids_shape[1], grids_shape[2]
+    return (c == 3 and w % 4 == 0 and wo % 4 == 0 and h * w * c < 2 ** 31
+            and ho * wo * c < 2 ** 31 and b <= 65535 and ho <= 65535)
+
+
 @functools.cache
-def _batch_kernel():
-    """The C launcher of csrc/warp_u8_batch.cu (built at first use)."""
+def _batch_kernels():
+    """The C launchers of csrc/warp_u8_batch.cu (built at first use):
+    (general, packed)."""
     from dvsg_tpu_torch.ops import _build
-    fn = _build.library("warp_u8_batch").dvsg_warp_u8_batch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.library("warp_u8_batch")
+    fns = lib.dvsg_warp_u8_batch, lib.dvsg_warp_u8_batch_packed
+    for fn in fns:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fns
 
 
-def _launch_batch(frames_u8: torch.Tensor, grids: torch.Tensor
-                  ) -> torch.Tensor:
-    """The dense-grid kernel on contiguous CUDA tensors (f32 grids)."""
-    fn = _batch_kernel()
+def _launch_batch(frames_u8: torch.Tensor, grids: torch.Tensor,
+                  packed: bool | None = None) -> torch.Tensor:
+    """One dense-grid kernel launch on contiguous CUDA tensors (f32 grids);
+    ``packed`` overrides the choice by shape (timing the two side by
+    side)."""
+    global LAUNCHES_BATCH, LAUNCHES_BATCH_PACKED
+    if packed is None:
+        packed = takes_packed_batch_kernel(frames_u8.shape, grids.shape)
     b, h, w, c = frames_u8.shape
     ho, wo = grids.shape[1], grids.shape[2]
     out = torch.empty((b, ho, wo, c), dtype=torch.uint8,
                       device=frames_u8.device)
     if out.numel() == 0:
         return out
+    if packed and frames_u8.data_ptr() % 4:
+        frames_u8 = frames_u8.clone()      # a view off the word boundary
+    if packed and grids.data_ptr() % 16:
+        grids = grids.clone()              # a view off the 16-byte boundary
+    fn = _batch_kernels()[packed]
     stream = torch.cuda.current_stream(frames_u8.device).cuda_stream
     with torch.cuda.device(frames_u8.device):
         rc = fn(frames_u8.data_ptr(), grids.data_ptr(), out.data_ptr(),
@@ -189,8 +219,8 @@ def _launch_batch(frames_u8: torch.Tensor, grids: torch.Tensor
     if rc != 0:
         raise RuntimeError(f"warp_u8_batch kernel launch failed: CUDA "
                            f"error {rc}")
-    global LAUNCHES_BATCH
     LAUNCHES_BATCH += 1
+    LAUNCHES_BATCH_PACKED += packed
     return out
 
 

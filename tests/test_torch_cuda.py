@@ -171,15 +171,94 @@ def test_warp_u8_batch_kernel_matches_plain(dev, shape, out_hw, spill):
     frames = torch.from_numpy(
         rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
     grids = _grids(rng, shape[0], *out_hw, spill, dev)
-    before = warp_wide.LAUNCHES_BATCH
+    before = warp_wide.LAUNCHES_BATCH, warp_wide.LAUNCHES_BATCH_PACKED
     got = warp_wide.warp_u8_batch(frames, grids)
-    assert warp_wide.LAUNCHES_BATCH == before + 1
+    assert warp_wide.LAUNCHES_BATCH == before[0] + 1
+    assert warp_wide.LAUNCHES_BATCH_PACKED == before[1]    # general shapes
     want = warp_wide.warp_u8_batch_plain(frames, grids)
     torch.cuda.synchronize()
     assert got.dtype == torch.uint8
     assert got.shape == (shape[0], *out_hw, shape[3])
     diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
     assert int(diff.max()) <= 1
+
+
+# The packed dense-grid kernel's shapes: RGB, W and Wo multiples of four.
+PACKED_SHAPES = [((2, 37, 152, 3), (37, 152), 1.0),
+                 ((2, 40, 152, 3), (36, 100), 1.4),  # output size != input's
+                 ((3, 64, 96, 3), (64, 96), 2.0),
+                 ((1, 5, 4, 3), (3, 4), 1.5)]        # one pixel group a row
+
+
+@pytest.mark.parametrize("shape,out_hw,spill", PACKED_SHAPES)
+def test_warp_u8_batch_packed_kernel_equals_general(dev, shape, out_hw,
+                                                    spill):
+    """On its shapes the wrapper takes the packed kernel, which gives the
+    general-shape kernel's bytes; both within 1 LSB of plain."""
+    rng = np.random.default_rng(13)
+    frames = torch.from_numpy(
+        rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    grids = _grids(rng, shape[0], *out_hw, spill, dev)
+    assert warp_wide.takes_packed_batch_kernel(shape, grids.shape)
+    before = warp_wide.LAUNCHES_BATCH, warp_wide.LAUNCHES_BATCH_PACKED
+    packed = warp_wide.warp_u8_batch(frames, grids)
+    assert (warp_wide.LAUNCHES_BATCH, warp_wide.LAUNCHES_BATCH_PACKED) \
+        == (before[0] + 1, before[1] + 1)
+    general = warp_wide._launch_batch(frames, grids, packed=False)
+    want = warp_wide.warp_u8_batch_plain(frames, grids)
+    torch.cuda.synchronize()
+    assert packed.shape == (shape[0], *out_hw, 3)
+    assert torch.equal(packed, general)
+    for got in (packed, general):
+        diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+        assert int(diff.max()) <= 1
+
+
+def test_warp_u8_batch_packed_kernel_refuses_other_shapes(dev):
+    """Forced onto a shape it does not take, the packed kernel's launcher
+    refuses and the wrapper raises."""
+    rng = np.random.default_rng(14)
+    for (b, h, w, c), (ho, wo) in (((2, 8, 10, 3), (8, 12)),   # W % 4
+                                   ((2, 8, 12, 3), (8, 10)),   # Wo % 4
+                                   ((2, 8, 12, 1), (8, 12)),   # C
+                                   ((2, 8, 12, 4), (8, 12))):
+        frames = torch.zeros((b, h, w, c), dtype=torch.uint8, device=dev)
+        grids = _grids(rng, b, ho, wo, 1.0, dev)
+        assert not warp_wide.takes_packed_batch_kernel(frames.shape,
+                                                       grids.shape)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            warp_wide._launch_batch(frames, grids, packed=True)
+
+
+def test_warp_u8_batch_packed_kernel_on_unaligned_views(dev):
+    """Frames off the word boundary and grids off the 16-byte boundary are
+    moved, not refused, and give the right bytes; the identity grid gives
+    the frames back exactly."""
+    rng = np.random.default_rng(15)
+    shape, (ho, wo) = (2, 24, 44, 3), (20, 36)
+    flat = torch.from_numpy(rng.integers(
+        0, 256, int(np.prod(shape)) + 1, dtype=np.uint8)).to(dev)
+    frames = flat[1:].view(shape)                   # data_ptr % 4 == 1
+    g = _grids(rng, shape[0], ho, wo, 1.3, dev)
+    gflat = torch.empty(g.numel() + 1, device=dev)
+    gflat[1:] = g.reshape(-1)
+    grids = gflat[1:].view(g.shape)                 # data_ptr % 16 == 4
+    assert frames.data_ptr() % 4 and grids.data_ptr() % 16
+    before = warp_wide.LAUNCHES_BATCH_PACKED
+    got = warp_wide.warp_u8_batch(frames, grids)
+    assert warp_wide.LAUNCHES_BATCH_PACKED == before + 1
+    general = warp_wide._launch_batch(frames.contiguous().clone(),
+                                      g.contiguous(), packed=False)
+    want = warp_wide.warp_u8_batch_plain(frames, grids)
+    ys, xs = torch.meshgrid(torch.linspace(-1, 1, shape[1], device=dev),
+                            torch.linspace(-1, 1, shape[2], device=dev),
+                            indexing="ij")
+    ident = torch.stack([xs, ys], -1).expand(shape[0], -1, -1, -1)
+    same = warp_wide.warp_u8_batch(frames, ident)
+    torch.cuda.synchronize()
+    assert torch.equal(got, general)
+    assert int((got.to(torch.int16) - want.to(torch.int16)).abs().max()) <= 1
+    assert torch.equal(same, frames)
 
 
 def test_train_step_on_the_card_matches_the_cpu(dev):

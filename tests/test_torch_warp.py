@@ -179,3 +179,100 @@ def test_plain_within_1lsb_of_reference_oracle_on_both_kernels_shapes(shape):
                                       torch.from_numpy(offs), 0.05).numpy()
     assert ours.shape == frames.shape
     assert np.abs(ours.astype(int) - ref).max() <= 1
+
+
+@pytest.mark.parametrize("frames_shape,out_hw,packed", [
+    ((16, 720, 1280, 3), (720, 1280), True),     # the 720p chunk
+    ((16, 1080, 1920, 3), (1080, 1920), True),   # the 1080p chunk
+    ((2, 40, 152, 3), (36, 100), True),          # output size != input's
+    ((2, 8, 4, 3), (3, 4), True),                # one pixel group a row
+    ((1, 65536, 8, 3), (8, 8), True),            # no launch axis follows H
+    ((2, 40, 150, 3), (40, 152), False),         # W % 4 != 0
+    ((2, 40, 152, 3), (36, 102), False),         # Wo % 4 != 0
+    ((16, 480, 854, 3), (480, 854), False),
+    ((2, 40, 152, 1), (40, 152), False),         # the packed kernel is RGB
+    ((2, 40, 152, 4), (40, 152), False),
+    ((1, 32768, 32768, 3), (8, 8), False),       # a frame over 2^31 bytes
+    ((1, 8, 8, 3), (32768, 32768), False),       # an output frame over it
+    ((65536, 8, 8, 3), (8, 8), False),           # launch axes the device
+    ((1, 8, 8, 3), (65536, 8), False),           # refuses
+])
+def test_batch_kernel_choice_is_by_shape_alone(frames_shape, out_hw, packed):
+    """The dense-grid wrapper's pick between the packed and the
+    general-shape CUDA kernel is a function of the two shapes."""
+    grids_shape = (frames_shape[0], *out_hw, 2)
+    assert twarp_wide.takes_packed_batch_kernel(frames_shape,
+                                                grids_shape) is packed
+    assert twarp_wide.takes_packed_batch_kernel(
+        torch.Size(frames_shape), torch.Size(grids_shape)) is packed
+
+
+def _u8_kernel_rule(frames, grids, pair_start_clamp):
+    """The uint8 kernels' arithmetic in torch: 0..255 taps, the coordinate
+    in the kernels' f32 order, one round half to even. With
+    ``pair_start_clamp`` the packed kernel's rule (the tap pair starts at
+    min(floor(x), W - 2), so x = W - 1 puts weight 1.0 on the second tap),
+    else the general kernel's and the oracle's (x1 = min(x0 + 1, W - 1))."""
+    b, h, w, c = frames.shape
+    src = frames.to(torch.float32).reshape(b, h * w, c)
+    x = torch.clamp((grids[..., 0] + 1.0) * 0.5 * (w - 1), 0.0, w - 1)
+    y = torch.clamp((grids[..., 1] + 1.0) * 0.5 * (h - 1), 0.0, h - 1)
+    x0 = torch.floor(x)
+    if pair_start_clamp:
+        x0 = torch.clamp(x0, max=w - 2)
+        x1 = x0 + 1
+    else:
+        x1 = torch.clamp(x0 + 1, max=w - 1)
+    fx, y0 = (x - x0)[..., None], torch.floor(y)
+    fy, y1 = (y - y0)[..., None], torch.clamp(y0 + 1, max=h - 1)
+
+    def tap(yi, xi):
+        idx = (yi.long() * w + xi.long()).reshape(b, -1, 1).expand(-1, -1, c)
+        return torch.gather(src, 1, idx).reshape(*xi.shape, c)
+
+    v00, v01, v10, v11 = tap(y0, x0), tap(y0, x1), tap(y1, x0), tap(y1, x1)
+    top = v00 + (v01 - v00) * fx
+    bot = v10 + (v11 - v10) * fx
+    acc = top + (bot - top) * fy
+    return torch.clamp(torch.round(acc), 0, 255).to(torch.uint8), x, y
+
+
+@pytest.mark.parametrize("shape,out_hw", [((2, 24, 32, 3), (20, 28)),
+                                          ((2, 40, 152, 3), (36, 100)),
+                                          ((1, 5, 4, 3), (6, 8))])
+def test_packed_pair_start_rule_gives_the_general_bytes(shape, out_hw):
+    """Starting the tap pair at W - 2 with weight 1.0 on its second tap
+    gives the bytes of the oracle's clamped second tap, on grids that leave
+    the frame on every side; both rules within 1 LSB of the oracle."""
+    rng = np.random.default_rng(10)
+    b, h, w, _ = shape
+    frames = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+    grids = torch.from_numpy(
+        rng.uniform(-2.0, 2.0, (b, *out_hw, 2)).astype(np.float32))
+    packed, x, y = _u8_kernel_rule(frames, grids, True)
+    general, _, _ = _u8_kernel_rule(frames, grids, False)
+    # The clamps were reached on every side.
+    assert bool((x == w - 1).any() and (x == 0).any()
+                and (y == h - 1).any() and (y == 0).any())
+    assert torch.equal(packed, general)
+    oracle = twarp_ref.warp_quantize_oracle(frames, grids)
+    assert int((packed.int() - oracle.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("shape,out_hw", [((2, 40, 152, 3), (36, 100)),
+                                          ((2, 37, 150, 3), (23, 61)),
+                                          ((1, 24, 64, 4), (20, 44))])
+def test_warp_u8_batch_plain_within_1lsb_of_reference_oracle(shape, out_hw):
+    """The packed kernel's shapes and the general kernel's alike run the
+    plain dense-grid version on the CPU, within 1 LSB of the reference's
+    dense-grid oracle, with an output size of its own."""
+    rng = np.random.default_rng(11)
+    b, h, w, c = shape
+    frames = rng.integers(0, 256, shape, dtype=np.uint8)
+    grids = rng.uniform(-1.3, 1.3, (b, *out_hw, 2)).astype(np.float32)
+    ref = np.asarray(jwarp_wide._oracle_u8(jnp.asarray(frames),
+                                           jnp.asarray(grids)))
+    ours = twarp_wide.warp_u8_batch(torch.from_numpy(frames),
+                                    torch.from_numpy(grids)).numpy()
+    assert ours.shape == (b, *out_hw, c) and ours.dtype == np.uint8
+    assert np.abs(ours.astype(int) - ref).max() <= 1
