@@ -27,7 +27,22 @@ on failure:
    kernel;
 4. times of that path with CUDA events after warm-up: each chunk stage,
    the device chunk, end-to-end frames/s, where a stream's host time goes;
-5. the training path, ``train.loop.train`` from a seeded init at the full
+5. path smoothing, auto-crop, online and overlap, both presets, 1280x720,
+   on a seeded 96-frame sway clip (sinusoidal x/y sway, periods 40 and 56
+   frames, plus jitter): causal (``path_smooth=32``) and fixed-lag
+   (``path_smooth_lag=16``) ``stabilize_clip`` with one packed offsets
+   kernel launch per chunk; stream == clip; a stream resumed mid-stream
+   and (lag) in the drain region == the uninterrupted one; the card
+   within 1 LSB of the CPU path on a small sway clip; the residual
+   translation path (RMS of the cumulative measured shifts of the output)
+   under 0.75x the unsmoothed output's; PSNR against the ideal target
+   higher smoothed than unsmoothed; ``pick_border_crop``'s crop keeping
+   every applied coordinate in [-1, 1]; ``OnlineStabilizer`` == clip;
+   the overlapped stream == the sync stream; no host synchronization in
+   either smoothed chunk step (``set_sync_debug_mode("error")``); then the
+   stage times of the smoothed chunks and the overlapped stream against
+   the sync stream;
+6. the training path, ``train.loop.train`` from a seeded init at the full
    width of both shipped model configs (batch 8, window 5) and a fine-tune
    of the committed ``fast`` weights: finite losses, the offset loss
    falling (and falling by half on one fixed batch), one launch of each
@@ -36,7 +51,7 @@ on failure:
    through the plain versions, a checkpoint saved, reloaded and resumed at
    the uninterrupted run's loss; then ``evaluate_synthetic`` of the
    committed and the fine-tuned weights;
-6. times of a train step (data generation, forward, loss warp, backward,
+7. times of a train step (data generation, forward, loss warp, backward,
    optimizer; medians of 20) and of each kernel beside its bound, its
    plain version and ``F.grid_sample`` (timed here as a yardstick only;
    the port never calls it): medians of 20 single calls from a cold L2,
@@ -75,9 +90,13 @@ from dvsg_tpu_torch.ops import grid as grid_ops
 from dvsg_tpu_torch.ops import resize as resize_ops
 from dvsg_tpu_torch.ops import warp as warp_ops
 from dvsg_tpu_torch.ops import warp_bilinear, warp_ref, warp_wide
+from dvsg_tpu_torch.pipeline import autocrop, pathsmooth
 from dvsg_tpu_torch.pipeline import stabilize as stab_lib
+from dvsg_tpu_torch.pipeline.online import OnlineStabilizer
+from dvsg_tpu_torch.pipeline.overlap import stabilize_stream_overlapped
 from dvsg_tpu_torch.train import eval as eval_lib
 from dvsg_tpu_torch.train import loop as train_loop
+from dvsg_tpu_torch.train import synthetic
 from dvsg_tpu_torch.utils import checkpoint as ckpt_lib
 from dvsg_tpu_torch.utils.checkpoint import load_npz
 from dvsg_tpu_torch.utils.metrics import StageTimer, psnr
@@ -95,6 +114,10 @@ EVAL_FRAMES, EVAL_SIZE = 32, (480, 640)
 T_CHUNK = 16
 N_FRAMES = 48
 HEIGHT, WIDTH = 720, 1280
+# Path smoothing phase: sway clip length, EMA horizon, lag, and the small
+# clip (frames, height, width) held against the CPU path.
+SWAY_FRAMES, SMOOTH, LAG = 96, 32, 16
+SMALL_SWAY = (24, 180, 320)
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -726,6 +749,404 @@ def time_b1(frames, offsets, crop) -> dict:
     return rec
 
 
+# --- path smoothing, auto-crop, online and overlap ---------------------------
+
+def make_sway_clip(seed: int, n: int, h: int, w: int, dev):
+    """Seeded sway clip with the port's synthetic renderer: x/y sway with
+    periods 40 and 56 frames plus per-frame jitter. Returns (uint8 frames,
+    the still on ``dev``, the (n, 5) path)."""
+    t = np.arange(n)
+    rng = np.random.default_rng(seed + 3)
+    path5 = np.zeros((n, 5), np.float32)
+    path5[:, 0] = 0.05 * np.sin(2 * np.pi * t / 40) \
+        + rng.normal(0, 0.008, n)
+    path5[:, 1] = 0.04 * np.sin(2 * np.pi * t / 56 + 1.0) \
+        + rng.normal(0, 0.008, n)
+    still = synthetic.random_still(torch.Generator().manual_seed(seed + 11),
+                                   h, w, device=dev)
+    return render_poses(still, path5), still, path5
+
+
+def render_poses(still: torch.Tensor, path5: np.ndarray) -> np.ndarray:
+    frames = synthetic.jitter_frames(still, torch.from_numpy(path5).to(
+        still.device))
+    return synthetic.to_u8(frames).cpu().numpy()
+
+
+def ideal_corrections(path5: np.ndarray, window: int, horizon: int,
+                      clamp: float, lag: int) -> np.ndarray:
+    """The smoother's output pose (x, y) per frame computed in float64 from
+    the true path: the window mean plus the correction of the same
+    recursion (causal EMA with anti-windup, or the lag FIR on its taps),
+    replicate-padded at both ends as the pipeline pads."""
+    p = path5[:, :2].astype(np.float64)
+    n_fr = len(p)
+    pp = np.concatenate([np.repeat(p[:1], window - 1, 0), p])
+    delta = np.zeros((n_fr + lag + 1, 2))
+    delta[1:n_fr] = np.diff(p, axis=0)     # delta[j] = p_j - p_(j-1)
+    k_past, taps = pathsmooth._lag_taps_np(horizon, lag, window) \
+        if lag else (0, None)
+    alpha = 2.0 / (horizon + 1.0)
+    d = np.zeros(2)
+    out = []
+    for g in range(n_fr):
+        gi = g + window - 1
+        abar = pp[gi - window + 1:gi + 1].mean(0)
+        rel = pp[gi] - abar
+        if lag:
+            fir = sum(taps[m] * delta[g + m - k_past + 1]
+                      for m in range(len(taps))
+                      if 0 <= g + m - k_past + 1 < len(delta))
+            e = np.clip(rel + fir, -clamp, clamp)
+        else:
+            d = (1 - alpha) * (d + (pp[gi] - pp[gi - 1]))
+            e = np.clip(rel - d, -clamp, clamp)
+            d = rel - e
+        out.append(abar + e)
+    return np.array(out)
+
+
+def tracked_rms(frames: np.ndarray, mh: int, mw: int, dev) -> float:
+    """RMS about its mean of the cumulative translation that
+    ``pathsmooth.measure_shifts`` finds in ``frames`` at model
+    resolution: the residual camera path of a stabilized clip."""
+    with torch.inference_mode():
+        seq = resize_ops.downscale_norm(stab_lib.put_frames(frames, dev),
+                                        mh, mw)
+        d, _ = pathsmooth.measure_shifts(seq)
+    p = np.cumsum(d.cpu().numpy().astype(np.float64), axis=0)
+    return float(np.sqrt(((p - p.mean(0)) ** 2).mean()))
+
+
+class FailingWriter(MemWriter):
+    """MemWriter whose ``fail_at``-th write raises (a killed job)."""
+
+    def __init__(self, total: int, shape, fail_at: int):
+        super().__init__(total, shape)
+        self.fail_at, self.calls = fail_at, 0
+
+    def write_batch(self, frames: np.ndarray) -> None:
+        if self.calls == self.fail_at:
+            raise RuntimeError("injected encoder failure")
+        self.calls += 1
+        super().write_batch(frames)
+
+
+def interrupted_then_resumed(stab, clip: np.ndarray, fail_at: int):
+    """A stream with a resume record killed at its ``fail_at``-th write,
+    then resumed on the same input: (frames, written and lag_real of the
+    record it resumed from)."""
+    with tempfile.TemporaryDirectory() as resume_dir:
+        first = FailingWriter(len(clip), clip.shape[1:], fail_at)
+        try:
+            stab.stabilize_stream(MemReader(clip), first,
+                                  resume_dir=resume_dir)
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        else:
+            raise AssertionError("the failing writer never failed")
+        with np.load(os.path.join(resume_dir, "resume_state.npz")) as z:
+            written = int(z["frames_written"])
+            lag_real = int(z["lag_real"]) if "lag_real" in z else None
+        second = MemWriter(len(clip), clip.shape[1:])
+        second.frames[:written] = first.frames[:written]
+        n = stab.stabilize_stream(MemReader(clip), second,
+                                  resume_dir=resume_dir)
+    if n != len(clip):
+        raise AssertionError(f"resumed stream wrote {n} of {len(clip)}")
+    return second.frames, written, lag_real
+
+
+def stream_run(stab, clip: np.ndarray, overlapped: bool):
+    """(frames, seconds, StageTimer totals) of one stream of ``clip``."""
+    writer = MemWriter(len(clip), clip.shape[1:])
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if overlapped:
+        n = stabilize_stream_overlapped(stab, MemReader(clip), writer,
+                                        timer=timer)
+    else:
+        n = stab.stabilize_stream(MemReader(clip), writer, timer=timer)
+    wall = time.perf_counter() - t0
+    if n != len(clip):
+        raise AssertionError(f"stream wrote {n} of {len(clip)} frames")
+    return writer.frames, wall, {k: v["total_s"]
+                                 for k, v in timer.summary().items()}
+
+
+def b2b_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median ms of ``iters`` calls back to back, each between its own
+    CUDA events: a stage bound by the host's launches reads as the time
+    the host takes to issue it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def queued_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median device ms of ``iters`` calls, each queued behind its own
+    ~10 ms matrix product, so the host has issued the whole call before
+    the card reaches it: the device's time alone."""
+    stall, _ = _stall_and_flush(torch.device("cuda", 0))
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        stall()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+@torch.inference_mode()
+def smooth_stage_times(stab, lag_stab, clip: np.ndarray, dev) -> dict:
+    """Per-chunk times of the smoothing stages and of the plain, smoothed
+    and lag chunk steps on the sway clip's first chunk: back to back (what
+    the chunk loop sees) and queued (the device's time)."""
+    cfg, lag_cfg, model = stab.cfg, lag_stab.cfg, stab.model
+    frames = stab_lib.put_frames(clip[:T_CHUNK], dev)
+    halo = stab._initial_halo(clip[0])
+    mh, mw = cfg.model.model_size
+    seq = torch.cat([halo, resize_ops.downscale_norm(frames, mh, mw)])
+    offsets = stab_lib.predict_chunk_offsets(cfg, model, seq, T_CHUNK)
+    state = pathsmooth.initial_state(dev)
+    deltas, conf = pathsmooth.measure(cfg, seq)
+    e, _ = pathsmooth.corrections_from_measured(cfg, deltas, conf, T_CHUNK,
+                                                state)
+    carry = lag_stab._init_lag_carry(clip[0])
+    d_ext = torch.cat([carry[2], deltas])
+    c_ext = torch.cat([carry[3], conf])
+    stages = {
+        "measure": lambda: pathsmooth.measure(cfg, seq),
+        "ema_scan": lambda: pathsmooth.corrections_from_measured(
+            cfg, deltas, conf, T_CHUNK, state),
+        "lag_fir": lambda: pathsmooth.lag_corrections(lag_cfg, d_ext, c_ext,
+                                                      T_CHUNK),
+        "apply": lambda: pathsmooth.apply_corrections(cfg, offsets, e),
+        "plain_chunk": lambda: stab_lib.stabilize_chunk_impl(
+            cfg, model, frames, halo),
+        "smoothed_chunk": lambda: stab_lib.stabilize_chunk_smooth_impl(
+            cfg, model, frames, halo, state),
+        "lag_chunk": lambda: stab_lib.stabilize_chunk_lag_impl(
+            lag_cfg, model, frames, halo, *carry),
+    }
+    return {name: {"b2b_ms": b2b_ms(fn), "queued_ms": queued_ms(fn)}
+            for name, fn in stages.items()}
+
+
+@torch.inference_mode()
+def no_host_sync(stab, lag_stab, clip: np.ndarray, dev) -> None:
+    """One call of each smoothed chunk step (after a warm-up call that
+    builds the cached tables) under ``set_sync_debug_mode("error")``: any
+    host synchronization inside raises."""
+    frames = stab_lib.put_frames(clip[:T_CHUNK], dev)
+    halo = stab._initial_halo(clip[0])
+    state = pathsmooth.initial_state(dev)
+    carry = lag_stab._init_lag_carry(clip[0])
+    steps = (lambda: stab_lib.stabilize_chunk_smooth_impl(
+                 stab.cfg, stab.model, frames, halo, state),
+             lambda: stab_lib.stabilize_chunk_lag_impl(
+                 lag_stab.cfg, lag_stab.model, frames, halo, *carry))
+    for step in steps:
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def lsb(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+
+def phase_smoothing(seed: int, dev):
+    """Path smoothing (causal and lag), auto-crop, online and overlap for
+    both presets on the sway clip. Returns (offsets-kernel launches in the
+    smoothed clip runs, per-preset results)."""
+    clip, still, path5 = make_sway_clip(seed, SWAY_FRAMES, HEIGHT, WIDTH,
+                                        dev)
+    small, _, _ = make_sway_clip(seed + 1, *SMALL_SWAY, dev)
+    chunks = {"causal": math.ceil(SWAY_FRAMES / T_CHUNK),
+              "lag": math.ceil((SWAY_FRAMES + LAG) / T_CHUNK)}
+    launches = 0
+    results = {}
+    for preset, ckpt in PRESETS:
+        params, mcfg = load_npz(os.path.join(ROOT, "checkpoints", ckpt))
+        mh, mw = mcfg.model_size
+        plain_cfg = StabilizeConfig(model=mcfg, chunk_frames=T_CHUNK)
+        cfgs = {"causal": plain_cfg.replace(path_smooth=SMOOTH),
+                "lag": plain_cfg.replace(path_smooth=SMOOTH,
+                                         path_smooth_lag=LAG)}
+        stabs = {m: stab_lib.Stabilizer(c, params, device="cuda")
+                 for m, c in cfgs.items()}
+        plain = stab_lib.Stabilizer(plain_cfg, params, device="cuda")
+        res = {}
+        outs = {"plain": plain.stabilize_clip(clip)}
+        for mode, stab in stabs.items():
+            warp_wide.LAUNCHES = warp_wide.LAUNCHES_PACKED = 0
+            out = stab.stabilize_clip(clip)
+            torch.cuda.synchronize()
+            n, n_packed = warp_wide.LAUNCHES, warp_wide.LAUNCHES_PACKED
+            launches += n
+            outs[mode] = out
+            if out.shape != clip.shape or out.dtype != np.uint8:
+                raise AssertionError(f"[{preset} {mode}] output {out.shape}")
+            if n != chunks[mode] or n_packed != chunks[mode]:
+                raise AssertionError(
+                    f"[{preset} {mode}] {n} launches, {n_packed} packed, "
+                    f"for {chunks[mode]} chunks")
+            stream, _, _ = stream_run(stab, clip, overlapped=False)
+            if not np.array_equal(stream, out):
+                raise AssertionError(f"[{preset} {mode}] stream != clip")
+            resumed, at, _ = interrupted_then_resumed(stab, clip, 2)
+            if not np.array_equal(resumed, out):
+                raise AssertionError(f"[{preset} {mode}] stream resumed at "
+                                     f"frame {at} differs")
+            rec = {"launches": n, "packed": n_packed,
+                   "chunks": chunks[mode], "resumed_at": at}
+            if mode == "lag":
+                # 88 frames: the record after the fifth write is written
+                # after the end was found, with 8 of the 16 carried frames
+                # real (the drain region).
+                short = clip[:88]
+                drained, at, real = interrupted_then_resumed(stab, short, 5)
+                if real is None or not 0 < real < LAG:
+                    raise AssertionError(f"[{preset}] the record at {at} "
+                                         f"has lag_real {real}")
+                if not np.array_equal(drained, stab.stabilize_clip(short)):
+                    raise AssertionError(f"[{preset}] stream resumed in the "
+                                         f"drain region differs")
+                rec.update(drain_resumed_at=at, drain_lag_real=real)
+            cpu = stab_lib.Stabilizer(cfgs[mode], params, device="cpu")
+            rec["card_vs_cpu_max_lsb"] = lsb(cpu.stabilize_clip(small),
+                                             stab.stabilize_clip(small))
+            if rec["card_vs_cpu_max_lsb"] > 1:
+                raise AssertionError(f"[{preset} {mode}] card vs CPU: "
+                                     f"{rec['card_vs_cpu_max_lsb']} LSB")
+            res[mode] = rec
+
+        # Quality: the residual translation path and PSNR against the
+        # ideal target, each smoothed mode against the unsmoothed output.
+        rms = {m: tracked_rms(o, mh, mw, dev) for m, o in outs.items()}
+        bh, bw = int(HEIGHT * 0.15), int(WIDTH * 0.15)
+        inner = (slice(None), slice(bh, HEIGHT - bh), slice(bw, WIDTH - bw))
+        for mode in cfgs:
+            th = np.zeros_like(path5)
+            th[:, :2] = ideal_corrections(path5, mcfg.window, SMOOTH,
+                                          cfgs[mode].path_smooth_max,
+                                          cfgs[mode].path_smooth_lag)
+            target = render_poses(still, th)
+            p_s = psnr(outs[mode][inner], target[inner])
+            p_p = psnr(outs["plain"][inner], target[inner])
+            res[mode].update(rms_smoothed=rms[mode], rms_plain=rms["plain"],
+                             psnr_ideal_smoothed_db=p_s,
+                             psnr_ideal_plain_db=p_p)
+            log(f"  [{preset} {mode}] {res[mode]['launches']} launches for "
+                f"{chunks[mode]} chunks (all packed); stream == clip; "
+                f"resumed at {res[mode]['resumed_at']} == uninterrupted"
+                + (f"; resumed in the drain region at "
+                   f"{res[mode]['drain_resumed_at']} (lag_real "
+                   f"{res[mode]['drain_lag_real']}) == uninterrupted"
+                   if mode == "lag" else "")
+                + f"; card vs CPU {res[mode]['card_vs_cpu_max_lsb']} LSB; "
+                f"residual path RMS {rms[mode]:.5f} vs unsmoothed "
+                f"{rms['plain']:.5f} ({rms[mode] / rms['plain']:.3f}x); "
+                f"PSNR vs ideal {p_s:.3f} dB vs unsmoothed {p_p:.3f} dB")
+            if not rms[mode] < 0.75 * rms["plain"]:
+                raise AssertionError(f"[{preset} {mode}] residual path RMS "
+                                     f"{rms[mode]:.5f} vs {rms['plain']:.5f}")
+            if not p_s > p_p:
+                raise AssertionError(f"[{preset} {mode}] PSNR vs ideal "
+                                     f"{p_s:.3f} <= unsmoothed {p_p:.3f}")
+
+        # Auto-crop: every applied coordinate of the picked crop in frame.
+        causal = stabs["causal"]
+        crop, m, capped = autocrop.pick_border_crop(cfgs["causal"], params,
+                                                    clip, device="cuda")
+        cropped = stab_lib.Stabilizer(cfgs["causal"].replace(
+            border_crop=crop), params, device="cuda")
+        cropped.begin_stream()
+        halo = cropped._initial_halo(clip[0])
+        worst = 0.0
+        for start in range(0, SWAY_FRAMES, T_CHUNK):
+            _, halo, offs = cropped._chunk(stab_lib.put_frames(
+                clip[start:start + T_CHUNK], dev), halo)
+            g = grid_ops.grid_from_offsets(offs, HEIGHT, WIDTH, crop)
+            worst = max(worst, float(g.abs().max()))
+        log(f"  [{preset}] pick_border_crop: max |offset| {m:.5f} -> crop "
+            f"{crop:.5f} (capped {capped}); largest |coordinate| applied "
+            f"{worst:.7f}")
+        if capped or worst > 1.0 + 1e-5:
+            raise AssertionError(f"[{preset}] crop {crop} leaves coordinate "
+                                 f"{worst}")
+
+        # Online push == clip; overlapped == sync.
+        online = OnlineStabilizer(cfgs["causal"], params, device="cuda")
+        pushed = [f for frame in clip for f in online.push(frame)]
+        pushed += online.flush()
+        if not np.array_equal(np.stack(pushed), outs["causal"]):
+            raise AssertionError(f"[{preset}] online push != clip")
+        streams = {}
+        for name, stab in (("plain", plain), ("causal", causal)):
+            for depth in (1, 3):
+                stab.cfg = stab.cfg.replace(queue_depth=depth)
+                got, _, _ = stream_run(stab, clip, overlapped=True)
+                if not np.array_equal(got, outs[name]):
+                    raise AssertionError(f"[{preset} {name}] overlapped "
+                                         f"(depth {depth}) != sync")
+            runs = {"sync": [], "overlapped": []}
+            for overlapped in (False, True, True, False):
+                _, wall, stages = stream_run(stab, clip, overlapped)
+                runs["overlapped" if overlapped else "sync"].append(
+                    {"s": wall, "fps": SWAY_FRAMES / wall,
+                     "stage_s": stages})
+            streams[name] = runs
+            log(f"  [{preset} {name}] overlapped == sync (depths 1, 3); "
+                + "; ".join(
+                    f"{k} " + " / ".join(f"{r['fps']:.1f}" for r in v)
+                    + " frames/s (" + ", ".join(
+                        f"{s} {1e3 * t:.2f} ms"
+                        for s, t in v[0]["stage_s"].items()) + ")"
+                    for k, v in runs.items()))
+
+        no_host_sync(causal, stabs["lag"], clip, dev)
+        times = smooth_stage_times(causal, stabs["lag"], clip, dev)
+        log(f"  [{preset}] no host sync in the smoothed and lag chunk steps;"
+            f" per chunk (T={T_CHUNK}), ms back to back / queued: "
+            + ", ".join(f"{k} {v['b2b_ms']:.4f} / {v['queued_ms']:.4f}"
+                        for k, v in times.items()))
+        dev_fps = {k: 1e3 * T_CHUNK / times[f"{k}_chunk"]["b2b_ms"]
+                   for k in ("plain", "smoothed", "lag")}
+        log(f"  [{preset}] device frames/s back to back: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in dev_fps.items()))
+        results[preset] = {"modes": res, "crop": crop, "crop_max_offset": m,
+                           "crop_worst_coordinate": worst,
+                           "streams": streams, "stage_ms": times,
+                           "device_fps": dev_fps}
+    return launches, results
+
+
 # --- the training path -------------------------------------------------------
 
 def reset_train_launches() -> None:
@@ -1229,13 +1650,18 @@ def main(argv=None) -> int:
     b1 = phase_times(stabs, clip, dev, results)
     del stabs, clip
 
-    log("== phase 5: training path at full width, then eval")
+    log("== phase 5: path smoothing, auto-crop, online and overlap, both "
+        "presets, 1280x720")
+    smooth_launches, smooth_results = phase_smoothing(args.seed, dev)
+    launches += smooth_launches
+
+    log("== phase 6: training path at full width, then eval")
     with tempfile.TemporaryDirectory() as work_dir:
         train_results, train_counts, tuned = phase_training(args.seed,
                                                             work_dir)
         eval_results = phase_eval(args.seed, tuned)
 
-    log("== phase 6: times of the training path and of each kernel")
+    log("== phase 7: times of the training path and of each kernel")
     phase_train_times(args.seed, train_results)
     dense = time_dense_kernels(rng, dev)
 
@@ -1271,7 +1697,8 @@ def main(argv=None) -> int:
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "seed": args.seed,
               "kernels": kernels, "b1": b1, "dense_kernels": dense,
-              "presets": results, "training": train_results,
+              "presets": results, "smoothing": smooth_results,
+              "training": train_results,
               "eval": eval_results, "build_s": build_s, "ptxas": ptxas,
               "build_each_s": build_each,
               "wall_s": time.perf_counter() - t_start}

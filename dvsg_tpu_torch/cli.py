@@ -5,6 +5,8 @@
       --preset quality --platform cpu
   python -m dvsg_tpu_torch train --checkpoint ckpt/ --steps 1000
   python -m dvsg_tpu_torch eval --checkpoint ckpt/ --clips 3
+  python -m dvsg_tpu_torch stabilize --input in/ --output out/ \\
+      --path-smooth 32 --path-smooth-lag 16 --border-crop auto
 
 Every command runs on the CUDA card unless ``--platform cpu`` is given.
 With no ``--checkpoint``/``--preset``, ``stabilize`` and ``eval`` use the
@@ -27,17 +29,7 @@ _CHECKPOINT_DIR = os.path.join(
     "checkpoints")
 
 # Reference flags this port refuses for now: (flag, argparse kwargs).
-_UNPORTED_SMOOTH = (
-    ("--path-smooth", dict(type=int)),
-    ("--path-smooth-max", dict(type=float)),
-    ("--path-smooth-no-rotation", dict(action="store_true", default=None)),
-    ("--path-smooth-no-scale", dict(action="store_true", default=None)),
-    ("--path-smooth-lag", dict(type=int)),
-    ("--path-smooth-conf", dict(type=float)),
-    ("--path-smooth-cut", dict(type=float)),
-)
-_UNPORTED = _UNPORTED_SMOOTH + (
-    ("--overlap", dict(action="store_true", default=None)),
+_UNPORTED = (
     ("--artifact", dict()),
     ("--profile-dir", dict()),
 )
@@ -116,6 +108,62 @@ def _checkpoint_path(args) -> str:
     return os.path.join(_CHECKPOINT_DIR, _PRESETS[args.preset or "fast"])
 
 
+def _add_smooth_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--path-smooth", type=int, default=0, metavar="FRAMES",
+                   help="camera-path smoothing horizon in frames (0 = "
+                        "off): removes the slow sway the model's short "
+                        "window passes through, with an EMA over the "
+                        "measured camera path; try 32")
+    p.add_argument("--path-smooth-max", type=float, default=0.05,
+                   help="clamp on the smoothing correction per frame and "
+                        "component (default 0.05)")
+    p.add_argument("--path-smooth-no-rotation", action="store_true",
+                   help="do not measure or smooth rotation sway")
+    p.add_argument("--path-smooth-no-scale", action="store_true",
+                   help="do not measure or smooth zoom sway")
+    p.add_argument("--path-smooth-lag", type=int, default=0, metavar="D",
+                   help="fixed-lag smoothing: delay the output D frames and "
+                        "smooth with a zero-phase filter over the D-frame "
+                        "lookahead (not with --overlap); try half of "
+                        "--path-smooth")
+    p.add_argument("--path-smooth-conf", type=float, default=2.0,
+                   help="confidence gate on the path measurement (peak-to-"
+                        "second-peak ratio); deltas below it are zeroed; 0 "
+                        "disables (default 2.0)")
+    p.add_argument("--path-smooth-cut", type=float, default=1.5,
+                   help="scene-cut gate (<= --path-smooth-conf): below it "
+                        "the smoother restarts; 0 disables (default 1.5)")
+
+
+def _smooth_kwargs(args) -> dict:
+    return dict(path_smooth=args.path_smooth,
+                path_smooth_max=args.path_smooth_max,
+                path_smooth_rotation=not args.path_smooth_no_rotation,
+                path_smooth_scale=not args.path_smooth_no_scale,
+                path_smooth_lag=args.path_smooth_lag,
+                path_smooth_conf=args.path_smooth_conf,
+                path_smooth_cut=args.path_smooth_cut)
+
+
+def _run_autocrop_scan(cfg, params, input_path: str, device) -> float:
+    """Pass 1 of --border-crop auto: scan the input with a fresh reader,
+    report on stderr, and return the picked crop fraction."""
+    from dvsg_tpu_torch.pipeline import autocrop
+    from dvsg_tpu_torch.utils import video_io
+    t0 = time.perf_counter()
+    with video_io.VideoReader(input_path) as reader:
+        crop, m, capped = autocrop.pick_border_crop(cfg, params, reader,
+                                                    device)
+    print(f"auto border-crop: max |offset| {m:.4f} -> crop {crop:.4f} "
+          f"({round(crop * autocrop.CROP_DENOM)}/{autocrop.CROP_DENOM}, "
+          f"scan {time.perf_counter() - t0:.1f}s)", file=sys.stderr)
+    if capped:
+        print("WARNING: clip motion exceeds the largest valid crop "
+              "(31/64); residual borders will be edge-clamped",
+              file=sys.stderr)
+    return crop
+
+
 def stabilize_main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m dvsg_tpu_torch stabilize",
@@ -137,13 +185,20 @@ def stabilize_main(argv=None) -> int:
                         "correction, 0 = passthrough")
     p.add_argument("--border-crop", default="0",
                    help="crop fraction in [0, 0.5) zoomed into the warp "
-                        "(hides stabilized borders)")
+                        "(hides stabilized borders), or 'auto': a "
+                        "predict-only first pass over the input picks the "
+                        "smallest crop that hides every border")
     p.add_argument("--resume-dir", default=None,
                    help="flush resume state here each chunk; a restart "
                         "resumes at the last flushed chunk (frame-dir "
                         "outputs only)")
+    p.add_argument("--overlap", action="store_true",
+                   help="overlap decode, compute and encode (threads, "
+                        "pinned buffers, a copy stream); no --resume-dir, "
+                        "no --path-smooth-lag")
     p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda",
                    help="device to run on (default cuda)")
+    _add_smooth_args(p)
     _add_unported(p, _UNPORTED)
     args = p.parse_args(argv)
 
@@ -151,21 +206,23 @@ def stabilize_main(argv=None) -> int:
     if given:
         return _err(f"{', '.join(given)}: not ported yet to the PyTorch "
                     "port (use python -m dvsg_tpu.cli)")
-    if args.border_crop.strip().lower() == "auto":
-        return _err("--border-crop auto: not ported yet; pass a fraction")
+    auto_crop = args.border_crop.strip().lower() == "auto"
     try:
-        border_crop = float(args.border_crop)
+        border_crop = 0.0 if auto_crop else float(args.border_crop)
     except ValueError:
         border_crop = -1.0
     if not 0.0 <= border_crop < 0.5:
-        return _err(f"--border-crop must be a fraction in [0, 0.5), got "
-                    f"{args.border_crop!r}")
+        return _err(f"--border-crop must be a fraction in [0, 0.5) or "
+                    f"'auto', got {args.border_crop!r}")
     if not 0.0 <= args.strength <= 2.0:
         return _err("--strength must be in [0, 2]")
     if args.chunk_frames < 1:
         return _err("--chunk-frames must be >= 1")
     if args.checkpoint and args.preset:
         return _err("pass --checkpoint or --preset, not both")
+    if args.overlap and args.resume_dir:
+        return _err("--overlap has no resume support; drop --overlap for a "
+                    "resumable run (or --resume-dir for an overlapped one)")
     ckpt = _checkpoint_path(args)
     if not ckpt.endswith(".npz") or not os.path.exists(ckpt):
         return _err(f"checkpoint {ckpt} is not an existing .npz file")
@@ -177,14 +234,27 @@ def stabilize_main(argv=None) -> int:
         return _err("--resume-dir needs a frame-directory --output")
 
     from dvsg_tpu_torch.config import StabilizeConfig
+    from dvsg_tpu_torch.pipeline import pathsmooth
     from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
     from dvsg_tpu_torch.utils.checkpoint import load_npz
     from dvsg_tpu_torch.utils.metrics import StageTimer
 
     params, mcfg = load_npz(ckpt)
     print(f"loaded npz checkpoint {ckpt}", file=sys.stderr)
-    cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
-                          border_crop=border_crop, strength=args.strength)
+    try:
+        cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
+                              strength=args.strength, **_smooth_kwargs(args))
+        if args.overlap:
+            pathsmooth.lag_reject(cfg, "--overlap (drop --overlap for a "
+                                  "lag run)")
+    except ValueError as e:
+        return _err(str(e))
+    if auto_crop:
+        # Pass 1 shares chunking, strength and the smoothing margin with
+        # pass 2, so both passes predict the same offsets.
+        border_crop = _run_autocrop_scan(cfg, params, args.input,
+                                         args.platform)
+    cfg = cfg.replace(border_crop=border_crop)
     stab = Stabilizer(cfg, params, device=args.platform)
     reader = video_io.VideoReader(args.input)
     writer = video_io.VideoWriter(args.output, reader.width, reader.height,
@@ -192,8 +262,14 @@ def stabilize_main(argv=None) -> int:
     timer = StageTimer()
     t0 = time.perf_counter()
     try:
-        n = stab.stabilize_stream(reader, writer, timer=timer,
-                                  resume_dir=args.resume_dir)
+        if args.overlap:
+            from dvsg_tpu_torch.pipeline.overlap import (
+                stabilize_stream_overlapped)
+            n = stabilize_stream_overlapped(stab, reader, writer,
+                                            timer=timer)
+        else:
+            n = stab.stabilize_stream(reader, writer, timer=timer,
+                                      resume_dir=args.resume_dir)
     finally:
         reader.close()
         writer.close()
@@ -296,13 +372,16 @@ def eval_main(argv=None) -> int:
                         "one per clip, cycled), jittered with the exact "
                         "synthetic ground truth instead of procedural "
                         "textures")
+    p.add_argument("--path-smooth", type=int, default=0, metavar="FRAMES",
+                   help="evaluate with camera-path smoothing (see stabilize "
+                        "--path-smooth); psnr_vs_target scores against the "
+                        "window-mean target, which a smoothed output "
+                        "deviates from on purpose")
+    p.add_argument("--path-smooth-lag", type=int, default=0, metavar="D",
+                   help="evaluate the fixed-lag smoothing mode (see "
+                        "stabilize --path-smooth-lag)")
     _add_model_args(p)
-    _add_unported(p, _UNPORTED_SMOOTH)
     args = p.parse_args(argv)
-    given = _refused(args, _UNPORTED_SMOOTH)
-    if given:
-        return _err(f"{', '.join(given)}: not ported yet to the PyTorch "
-                    "port (use python -m dvsg_tpu.cli)")
     if args.dtype not in (None, "float32"):
         return _err(f"--dtype {args.dtype}: not ported yet (float32 only)")
     if args.checkpoint and args.preset:
@@ -331,7 +410,12 @@ def eval_main(argv=None) -> int:
               file=sys.stderr)
 
     h, w = args.size
-    cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames)
+    try:
+        cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
+                              path_smooth=args.path_smooth,
+                              path_smooth_lag=args.path_smooth_lag)
+    except ValueError as e:
+        return _err(str(e))
     stab = Stabilizer(cfg, params, device=args.platform)
     stills = None
     if args.stills:

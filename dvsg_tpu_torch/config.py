@@ -1,11 +1,15 @@
 """Configuration dataclasses of the PyTorch port.
 
 An own copy of ``ModelConfig``/``StabilizeConfig``/``TrainConfig`` with the
-same field names, defaults and checks as the JAX package's, so a
-checkpoint's ``__config__`` record loads into either package and
-``config_to_json`` writes the record the other reads. The chunk size T is a
-plain default (16); resolution-keyed chunk bands are measured per device
-and are not carried over.
+same field names, defaults and checks as the JAX package's. A checkpoint's
+``__config__`` record (a ``ModelConfig``) loads into either package, and
+``config_to_json`` writes the record the other reads. A ``StabilizeConfig``
+record of the JAX package does not load here as it is: its ``warp_impl``,
+``mesh_shape`` and ``io_threads`` fields (the warp switch, the device mesh
+and the host I/O pool) have no counterpart in this port, so
+``stabilize_config_from_dict`` refuses them. The chunk size T is a plain
+default (16); resolution-keyed chunk bands are measured per device and are
+not carried over.
 """
 
 from __future__ import annotations
@@ -58,10 +62,24 @@ class StabilizeConfig:
     strength: float = 1.0         # scale on the predicted correction:
                                   # 0 = passthrough, 1 = full, (1, 2] =
                                   # overcorrection
+    queue_depth: int = 3          # staging ring depth of the overlapped
+                                  # stream loop (decode, compute, encode)
     path_smooth: int = 0          # cross-chunk camera-path smoothing
-                                  # horizon in frames; 0 = off
-    path_smooth_lag: int = 0      # fixed-lag smoothing lookahead in frames;
-                                  # 0 = causal
+                                  # horizon in frames (an EMA over the
+                                  # measured camera path); 0 = off
+    path_smooth_max: float = 0.05  # clamp on the path correction per frame
+                                   # and component (x/y normalized units,
+                                   # rotation in radians, log-scale)
+    path_smooth_rotation: bool = True  # also measure and smooth rotation
+    path_smooth_scale: bool = True     # also measure and smooth zoom
+    path_smooth_conf: float = 2.0  # confidence gate: deltas of frame pairs
+                                   # whose correlation peak-to-second-peak
+                                   # ratio is below it are zeroed; 0 = off
+    path_smooth_lag: int = 0      # fixed-lag smoothing lookahead D in
+                                  # frames (output delayed D frames, a
+                                  # zero-phase FIR); 0 = causal EMA
+    path_smooth_cut: float = 1.5  # scene-cut gate (<= path_smooth_conf):
+                                  # below it the EMA state restarts; 0 = off
 
     def __post_init__(self):
         if self.chunk_frames < 1:
@@ -70,18 +88,49 @@ class StabilizeConfig:
         if not 0.0 <= self.strength <= 2.0:
             raise ValueError(
                 f"strength must be in [0, 2], got {self.strength}")
+        if self.queue_depth < 1:
+            raise ValueError(
+                f"queue_depth must be >= 1, got {self.queue_depth}")
         if self.path_smooth < 0:
             raise ValueError(
                 f"path_smooth must be >= 0, got {self.path_smooth}")
+        if self.path_smooth > 0 and self.model.window < 2:
+            # The smoother reads inter-frame deltas out of the carried
+            # halo; window 1 carries no halo.
+            raise ValueError("path_smooth requires model.window >= 2")
+        if not 0.0 <= self.path_smooth_max <= 0.25:
+            raise ValueError(f"path_smooth_max must be in [0, 0.25], got "
+                             f"{self.path_smooth_max}")
         if self.path_smooth_lag < 0 or self.path_smooth_lag > 64:
             raise ValueError(
                 f"path_smooth_lag must be in [0, 64], got "
                 f"{self.path_smooth_lag}")
+        if self.path_smooth_lag > 0:
+            if self.path_smooth <= 0:
+                raise ValueError(
+                    "path_smooth_lag needs path_smooth > 0 (the lag is a "
+                    "lookahead for the path smoother)")
+            if self.path_smooth_lag > self.chunk_frames:
+                # The lag step carries exactly D frames between chunks.
+                raise ValueError(
+                    f"path_smooth_lag ({self.path_smooth_lag}) must be "
+                    f"<= chunk_frames ({self.chunk_frames})")
+        if self.path_smooth_conf < 0 or not (
+                0.0 <= self.path_smooth_cut <= max(self.path_smooth_conf,
+                                                   0.0)):
+            # A cut must also be gated (its delta zeroed), so the cut
+            # threshold cannot exceed the gate threshold.
+            raise ValueError(
+                f"need 0 <= path_smooth_cut <= path_smooth_conf, got "
+                f"cut={self.path_smooth_cut} conf={self.path_smooth_conf}")
         # border_crop >= 0.5 flips the sign of the identity-grid scale
         # (1 - 2*crop): x would decrease with pixel index.
         if not 0.0 <= self.border_crop < 0.5:
             raise ValueError(
                 f"border_crop must be in [0, 0.5), got {self.border_crop}")
+
+    def replace(self, **kw) -> "StabilizeConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

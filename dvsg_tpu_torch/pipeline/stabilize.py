@@ -7,7 +7,9 @@
 Long videos stream in chunks of T frames carrying a (window-1)-frame
 model-resolution halo between chunks. The last partial chunk is padded
 to T by replicating its final frame and trimmed on the host, so every
-chunk has one shape.
+chunk has one shape. With ``cfg.path_smooth`` the chunk step also carries
+the camera-path smoother's state (pipeline/pathsmooth.py), and with
+``cfg.path_smooth_lag`` it emits its frames D frames late.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from dvsg_tpu_torch.config import StabilizeConfig
 from dvsg_tpu_torch.models import motion_cnn
 from dvsg_tpu_torch.ops import resize as resize_ops
 from dvsg_tpu_torch.ops import warp as warp_ops
+from dvsg_tpu_torch.pipeline import pathsmooth
 from dvsg_tpu_torch.utils.metrics import StageTimer
 
 
@@ -56,6 +59,26 @@ def predict_chunk_offsets(cfg: StabilizeConfig,
     return offsets
 
 
+def _chunk_body(cfg: StabilizeConfig, model: motion_cnn.MotionEstimator,
+                frames_u8: torch.Tensor, halo: torch.Tensor,
+                smooth_state: Optional[torch.Tensor]):
+    """Shared body of the plain and the path-smoothed chunk steps."""
+    t = frames_u8.shape[0]
+    mh, mw = cfg.model.model_size
+    small = resize_ops.downscale_norm(frames_u8, mh, mw)
+    seq = torch.cat([halo, small], dim=0)        # (T+N-1, mh, mw, C)
+    offsets = predict_chunk_offsets(cfg, model, seq, t)
+    new_state = smooth_state
+    if smooth_state is not None:
+        # Cross-chunk camera-path smoothing (pipeline/pathsmooth.py): the
+        # warp sees the final offsets.
+        offsets, new_state = pathsmooth.apply_path_smoothing(
+            cfg, seq, offsets, smooth_state)
+    out_u8 = warp_ops.warp_quantize_batch(
+        frames_u8, offsets=offsets, border_crop=cfg.border_crop)
+    return out_u8, seq[t:], new_state, offsets
+
+
 def stabilize_chunk_impl(cfg: StabilizeConfig,
                          model: motion_cnn.MotionEstimator,
                          frames_u8: torch.Tensor, halo: torch.Tensor
@@ -72,14 +95,65 @@ def stabilize_chunk_impl(cfg: StabilizeConfig,
     Returns:
       (stabilized_u8 (T, H, W, C), new_halo, offsets (T, gh, gw, 2)).
     """
+    out_u8, new_halo, _, offsets = _chunk_body(cfg, model, frames_u8, halo,
+                                               None)
+    return out_u8, new_halo, offsets
+
+
+def stabilize_chunk_smooth_impl(cfg: StabilizeConfig,
+                                model: motion_cnn.MotionEstimator,
+                                frames_u8: torch.Tensor, halo: torch.Tensor,
+                                smooth_state: torch.Tensor):
+    """Path-smoothed device step (cfg.path_smooth > 0): the contract of
+    ``stabilize_chunk_impl`` plus a carried (4,) f32 smoothing state.
+    Returns (stabilized_u8, new_halo, new_smooth_state, offsets), the
+    offsets being the applied (smoothed) ones."""
+    return _chunk_body(cfg, model, frames_u8, halo, smooth_state)
+
+
+def stabilize_chunk_lag_impl(cfg: StabilizeConfig,
+                             model: motion_cnn.MotionEstimator,
+                             frames_u8: torch.Tensor, halo: torch.Tensor,
+                             carry_frames: torch.Tensor,
+                             carry_offsets: torch.Tensor,
+                             carry_d: torch.Tensor, carry_c: torch.Tensor):
+    """Fixed-lag smoothed device step (cfg.path_smooth_lag = D > 0).
+
+    Consumes input frames [kT, (k+1)T) and emits output frames
+    [kT−D, (k+1)T−D): the last D input frames of a chunk are warped one
+    chunk later, once their D-frame lookahead exists, through the
+    zero-phase FIR smoother (pathsmooth.lag_corrections). Carried between
+    chunks: the model-res halo, the D delayed raw frames, their D offset
+    grids, and the trailing measurement window (deltas + confidence).
+    Returns (emitted_u8 (T, H, W, C), new_halo, new_carry_frames,
+    new_carry_offsets, new_carry_d, new_carry_c, emitted_offsets).
+
+    The caller drops the first D emitted frames of a stream and feeds
+    replicate-pad chunks after the end until the tail drains; a pad
+    transition measures as an exact zero delta.
+    """
+    d_lag = cfg.path_smooth_lag
     t = frames_u8.shape[0]
     mh, mw = cfg.model.model_size
     small = resize_ops.downscale_norm(frames_u8, mh, mw)
-    seq = torch.cat([halo, small], dim=0)        # (T+N-1, mh, mw, C)
-    offsets = predict_chunk_offsets(cfg, model, seq, t)
+    seq = torch.cat([halo, small], dim=0)
+    offsets_cur = predict_chunk_offsets(cfg, model, seq, t)
+
+    deltas_cur, conf_cur = pathsmooth.measure(cfg, seq)
+    deltas_ext = torch.cat([carry_d, deltas_cur], dim=0)
+    conf_ext = torch.cat([carry_c, conf_cur], dim=0)
+    e = pathsmooth.lag_corrections(cfg, deltas_ext, conf_ext, t)
+
+    emit_frames = torch.cat([carry_frames, frames_u8[:t - d_lag]], dim=0)
+    emit_offsets = torch.cat([carry_offsets, offsets_cur[:t - d_lag]],
+                             dim=0)
+    emit_offsets = pathsmooth.apply_corrections(cfg, emit_offsets, e)
     out_u8 = warp_ops.warp_quantize_batch(
-        frames_u8, offsets=offsets, border_crop=cfg.border_crop)
-    return out_u8, seq[t:], offsets
+        emit_frames, offsets=emit_offsets, border_crop=cfg.border_crop)
+
+    c_len = carry_d.shape[0]
+    return (out_u8, seq[t:], frames_u8[t - d_lag:], offsets_cur[t - d_lag:],
+            deltas_ext[t:t + c_len], conf_ext[t:t + c_len], emit_offsets)
 
 
 def put_frames(host_frames: np.ndarray, device) -> torch.Tensor:
@@ -108,6 +182,38 @@ def initial_halo(cfg: StabilizeConfig, first_frame_u8: np.ndarray,
     return small.repeat(cfg.model.window - 1, 1, 1, 1)
 
 
+def build_model(mcfg, params: dict, device: torch.device
+                ) -> motion_cnn.MotionEstimator:
+    """The motion CNN with ``params`` loaded, on ``device``, for inference.
+
+    The configs are float32: cuDNN convolutions and cuBLAS matmuls stay in
+    full f32 (TF32 keeps ~3 decimal digits, far outside the reference's
+    tolerance). These are process-wide switches.
+    """
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = motion_cnn.MotionEstimator(mcfg)
+    model.load_state_dict(params)
+    return model.to(device).eval()
+
+
+def _load_record(path: str) -> Optional[dict]:
+    """The resume record at ``path`` as numpy arrays, or None."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as z:
+        return {k: np.array(z[k]) for k in z.files}
+
+
+def _save_record(resume_dir: str, **arrays) -> None:
+    """Write the resume record atomically (one file: halo, frames written
+    and the smoothing carries together, so no piece is a chunk newer than
+    the rest)."""
+    tmp = os.path.join(resume_dir, "resume_state.tmp.npz")
+    np.savez(tmp, **arrays)
+    os.replace(tmp, os.path.join(resume_dir, "resume_state.npz"))
+
+
 class Stabilizer:
     """User-facing stabilization engine: arrays in, arrays out.
 
@@ -118,34 +224,75 @@ class Stabilizer:
 
     def __init__(self, cfg: StabilizeConfig, params: dict,
                  device="cuda"):
-        if cfg.path_smooth > 0 or cfg.path_smooth_lag > 0:
-            raise NotImplementedError(
-                "path smoothing (path_smooth, path_smooth_lag) is not "
-                "ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
-        # The configs are float32: keep cuDNN convolutions and cuBLAS
-        # matmuls in full f32 (TF32 keeps ~3 decimal digits, far outside
-        # the reference's tolerance). These are process-wide switches.
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        self.model = motion_cnn.MotionEstimator(cfg.model)
-        self.model.load_state_dict(params)
-        self.model.to(self.device).eval()
+        self.model = build_model(cfg.model, params, self.device)
         self.chunks_seen = 0
         # A CUDA gather reads any in-range address, so no chunk ever falls
         # back to a slower path; kept for the reference's reporting surface.
         self.coverage_fallbacks = 0
+        # Path-smoothing EMA state (pipeline/pathsmooth.py), reset at every
+        # stream start by begin_stream(). Every loop calls _chunk strictly
+        # in chunk order, so an instance-held state is safe.
+        self._smooth_state = None
+
+    def begin_stream(self, smooth_state=None) -> None:
+        """Reset per-stream state; ``smooth_state`` restores a resumed
+        stream's carried path-smoothing state. A (2,) or (3,) state of an
+        older record is zero-padded: the missing components start as a
+        fresh EMA."""
+        if self.cfg.path_smooth <= 0:
+            self._smooth_state = None
+        elif smooth_state is None:
+            self._smooth_state = pathsmooth.initial_state(self.device)
+        else:
+            s = np.asarray(smooth_state, np.float32).reshape(-1)
+            s = np.concatenate([s, np.zeros(pathsmooth.STATE_DIM - len(s),
+                                            np.float32)])
+            self._smooth_state = torch.from_numpy(s).to(self.device)
 
     @torch.inference_mode()
     def _chunk(self, dev_chunk: torch.Tensor, halo: torch.Tensor):
-        """One device step: the one dispatch point of every chunk loop."""
+        """One device step: the one dispatch point of every causal chunk
+        loop (clip, stream, overlapped stream, online push)."""
         self.chunks_seen += 1
+        if self.cfg.path_smooth > 0:
+            if self._smooth_state is None:      # direct _chunk callers
+                self.begin_stream()
+            out, halo, self._smooth_state, offs = \
+                stabilize_chunk_smooth_impl(self.cfg, self.model, dev_chunk,
+                                            halo, self._smooth_state)
+            return out, halo, offs
         return stabilize_chunk_impl(self.cfg, self.model, dev_chunk, halo)
+
+    @torch.inference_mode()
+    def _lag_chunk(self, dev_chunk: torch.Tensor, halo: torch.Tensor,
+                   carry: tuple):
+        """One fixed-lag device step: (emitted, new halo, new carry)."""
+        self.chunks_seen += 1
+        res = stabilize_chunk_lag_impl(self.cfg, self.model, dev_chunk,
+                                       halo, *carry)
+        return res[0], res[1], res[2:6]
 
     @torch.inference_mode()
     def _initial_halo(self, first_frame_u8: np.ndarray) -> torch.Tensor:
         return initial_halo(self.cfg, first_frame_u8, self.device)
+
+    @torch.inference_mode()
+    def _init_lag_carry(self, first_frame_u8: np.ndarray) -> tuple:
+        """Fresh lag-mode carries: D replicated first frames (their
+        emissions are dropped), zero offsets, and a zero-delta measurement
+        window with a huge confidence ('healthy, no motion', as the causal
+        mode's replicate-pad halo)."""
+        cfg, dev = self.cfg, self.device
+        d_lag = cfg.path_smooth_lag
+        gh, gw = cfg.model.grid_size
+        c_len = pathsmooth.lag_carry_len(cfg)
+        first = put_frames(np.asarray(first_frame_u8, np.uint8)[None], dev)
+        return (first.repeat(d_lag, 1, 1, 1),
+                torch.zeros((d_lag, gh, gw, 2), device=dev),
+                torch.zeros((c_len, pathsmooth.STATE_DIM), device=dev),
+                torch.full((c_len,), 1e6, device=dev))
 
     def _pad(self, chunk: np.ndarray) -> np.ndarray:
         t_chunk = self.cfg.chunk_frames
@@ -154,11 +301,36 @@ class Stabilizer:
             chunk = np.concatenate([chunk, pad], axis=0)
         return chunk
 
+    def _stabilize_clip_lag(self, frames_u8: np.ndarray) -> np.ndarray:
+        """Clip loop of the fixed-lag mode: emission is shifted by D
+        frames, so the loop runs D frames past the input (replicate pad)
+        and trims the emitted stream to [0, total)."""
+        d_lag = self.cfg.path_smooth_lag
+        t_chunk = self.cfg.chunk_frames
+        total = frames_u8.shape[0]
+        halo = self._initial_halo(frames_u8[0])
+        carry = self._init_lag_carry(frames_u8[0])
+        outs = []
+        emitted = -d_lag        # global index of out[0] for the next chunk
+        for start in range(0, total + d_lag, t_chunk):
+            idx = np.clip(np.arange(start, start + t_chunk), 0, total - 1)
+            out, halo, carry = self._lag_chunk(
+                put_frames(frames_u8[idx], self.device), halo, carry)
+            lo = max(0, -emitted)
+            hi = min(t_chunk, total - emitted)
+            if hi > lo:
+                outs.append(fetch_frames(out[lo:hi]))
+            emitted += t_chunk
+        return np.concatenate(outs, axis=0)
+
     def stabilize_clip(self, frames_u8: np.ndarray) -> np.ndarray:
         """frames_u8 (T, H, W, C) uint8 → stabilized (T, H, W, C) uint8."""
         total = frames_u8.shape[0]
         if total == 0:
             return frames_u8
+        if self.cfg.path_smooth_lag > 0:
+            return self._stabilize_clip_lag(frames_u8)
+        self.begin_stream()
         halo = self._initial_halo(frames_u8[0])
         t_chunk = self.cfg.chunk_frames
         outs = []
@@ -170,49 +342,174 @@ class Stabilizer:
             outs.append(fetch_frames(out[:n_valid]))
         return np.concatenate(outs, axis=0)
 
+    def _sync(self, out: torch.Tensor) -> None:
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+
+    def _stabilize_stream_lag(self, reader, writer, timer: StageTimer,
+                              resume_dir: Optional[str]) -> int:
+        """Stream loop of the fixed-lag mode (emission shifted by D).
+
+        After every chunk the input position is the emission base + D and
+        the frames flushed are max(0, base). Resume records hold the small
+        carries (offset grids, measurement window) and ``lag_real``: how
+        many of the D carried raw frames are real input (< D only when the
+        record was written in the end-of-stream drain region). The raw
+        frames are read again from the input on resume.
+        """
+        cfg, dev = self.cfg, self.device
+        d_lag = cfg.path_smooth_lag
+        t_chunk = cfg.chunk_frames
+        written = 0
+        halo = carry = last_host = total = None
+        base = -d_lag
+        rec = None
+        if resume_dir:
+            os.makedirs(resume_dir, exist_ok=True)
+            rec = _load_record(os.path.join(resume_dir, "resume_state.npz"))
+        if rec is not None and int(rec["frames_written"]) > 0:
+            written = int(rec["frames_written"])
+            if "lag_offsets" not in rec:
+                raise ValueError(
+                    "resume record was written without the lag smoother's "
+                    "carries but cfg.path_smooth_lag > 0; restart the job "
+                    "(or point --resume-dir elsewhere)")
+            lag_real = int(rec["lag_real"])
+            if lag_real == 0:
+                return written                  # job already complete
+            skipped = reader.skip(written)
+            if skipped != written:
+                raise ValueError(f"resume record says {written} frames but "
+                                 f"input only has {skipped} to skip")
+            cf = reader.read_batch(lag_real)
+            if cf.shape[0] != lag_real:
+                raise ValueError(
+                    f"resume record expects {lag_real} carry frames after "
+                    f"frame {written}; input yielded {cf.shape[0]} — did "
+                    "the input change?")
+            if lag_real < d_lag:
+                cf = np.concatenate(
+                    [cf, np.repeat(cf[-1:], d_lag - lag_real, axis=0)])
+            writer.seek(written)
+            halo = torch.from_numpy(rec["halo"]).to(dev)
+            carry = (put_frames(cf, dev),
+                     torch.from_numpy(rec["lag_offsets"]).to(dev),
+                     torch.from_numpy(rec["lag_d"]).to(dev),
+                     torch.from_numpy(rec["lag_c"]).to(dev))
+            last_host = cf[-1:]
+            base = written
+            if lag_real < d_lag:
+                # Written in the drain region: the stream's end is known.
+                total = written + lag_real
+        while total is None or base < total:
+            n_in = 0
+            if total is None:
+                with timer.stage("decode"):
+                    chunk = reader.read_batch(t_chunk)
+                n_in = chunk.shape[0]
+            if n_in:
+                last_host = chunk[-1:]
+                if halo is None:
+                    halo = self._initial_halo(chunk[0])
+                    carry = self._init_lag_carry(chunk[0])
+            if n_in < t_chunk:
+                if total is None:
+                    total = base + d_lag + n_in     # input position + n_in
+                if last_host is None or base >= total:
+                    break                           # empty or drained
+                pad = np.repeat(last_host, t_chunk - n_in, axis=0)
+                chunk = np.concatenate([chunk, pad]) if n_in else pad
+            with timer.stage("h2d"):
+                dev_chunk = put_frames(chunk, dev)
+            with timer.stage("compute"):
+                out, halo, carry = self._lag_chunk(dev_chunk, halo, carry)
+                self._sync(out)
+            lo = max(0, -base)
+            hi = t_chunk if total is None else min(t_chunk, total - base)
+            if hi > lo:
+                with timer.stage("d2h"):
+                    host_out = fetch_frames(out[lo:hi])
+                with timer.stage("encode"):
+                    writer.write_batch(host_out)
+                written += hi - lo
+            base += t_chunk
+            if resume_dir and written > 0:
+                lag_real = (d_lag if total is None
+                            else max(0, min(d_lag, total - base)))
+                _save_record(resume_dir, halo=halo.cpu().numpy(),
+                             frames_written=written,
+                             lag_offsets=carry[1].cpu().numpy(),
+                             lag_d=carry[2].cpu().numpy(),
+                             lag_c=carry[3].cpu().numpy(),
+                             lag_real=lag_real)
+        return written
+
+    def _resume_causal(self, rec: dict, reader, writer):
+        """Restore a causal stream from its record: skip the frames
+        written, seek the writer, restore the smoothing state. Returns
+        (frames written, halo)."""
+        written = int(rec["frames_written"])
+        smooth = rec.get("smooth_state")
+        if "lag_offsets" in rec:
+            # A lag record resumed without the lag would shift every later
+            # frame by D.
+            raise ValueError(
+                "resume record was written by a --path-smooth-lag run but "
+                "cfg.path_smooth_lag == 0; resume with the original lag "
+                "setting")
+        if self.cfg.path_smooth > 0 and smooth is None:
+            # Resuming would jump the camera path at the resume point.
+            raise ValueError(
+                "resume record was written without path smoothing but "
+                "cfg.path_smooth > 0; restart the job (or point "
+                "--resume-dir elsewhere)")
+        if self.cfg.path_smooth == 0 and smooth is not None:
+            # Dropping the state would switch the output from smoothed to
+            # unsmoothed mid-stream.
+            raise ValueError(
+                "resume record carries a path-smoothing state but "
+                "cfg.path_smooth == 0; resume with the original "
+                "--path-smooth setting (or restart the job elsewhere)")
+        skipped = reader.skip(written)
+        if skipped != written:
+            raise ValueError(f"resume record says {written} frames but "
+                             f"input only has {skipped} to skip")
+        writer.seek(written)
+        self.begin_stream(smooth_state=smooth)
+        return written, torch.from_numpy(rec["halo"]).to(self.device)
+
     def stabilize_stream(self, reader, writer,
                          timer: Optional[StageTimer] = None,
                          resume_dir: Optional[str] = None) -> int:
         """Stream reader → writer; returns the number of frames written.
 
         ``reader`` needs ``read_batch(n)`` and ``skip(n)``, ``writer``
-        ``write_batch(frames)`` and ``seek(i)`` (utils/video_io.py).
+        ``write_batch(frames)`` and ``seek(i)`` (utils/video_io.py). The
+        overlapped stream is pipeline/overlap.py.
 
-        ``resume_dir``: if given, one resume record (frames written + the
-        streaming halo) is flushed atomically at every chunk boundary, and
-        an interrupted job restarts from the last flushed chunk. Needs an
-        appendable (frame-directory) output.
+        ``resume_dir``: if given, one resume record (frames written, the
+        streaming halo and the smoothing carries, under the JAX package's
+        keys, so a record of either package resumes in the other) is
+        flushed atomically at every chunk boundary, and an interrupted job
+        restarts from the last flushed chunk. Needs an appendable
+        (frame-directory) output.
 
         The "compute" stage ends in a device synchronize, so it holds the
         chunk's device time.
         """
         timer = timer or StageTimer()
+        if self.cfg.path_smooth_lag > 0:
+            return self._stabilize_stream_lag(reader, writer, timer,
+                                              resume_dir)
         t_chunk = self.cfg.chunk_frames
         halo = None
         written = 0
-        state_path = None
+        self.begin_stream()
         if resume_dir:
             os.makedirs(resume_dir, exist_ok=True)
-            state_path = os.path.join(resume_dir, "resume_state.npz")
-            if os.path.exists(state_path):
-                with np.load(state_path) as z:
-                    written = int(z["frames_written"])
-                    halo_np = np.array(z["halo"])
-                    unported = [k for k in ("smooth_state", "lag_offsets")
-                                if k in z.files]
-                if written > 0:
-                    if unported:
-                        raise ValueError(
-                            "resume record was written by a path-smoothing "
-                            "run, which is not ported yet; restart the job "
-                            "(or point resume_dir elsewhere)")
-                    skipped = reader.skip(written)
-                    if skipped != written:
-                        raise ValueError(
-                            f"resume record says {written} frames but "
-                            f"input only has {skipped} to skip")
-                    writer.seek(written)
-                    halo = torch.from_numpy(halo_np).to(self.device)
+            rec = _load_record(os.path.join(resume_dir, "resume_state.npz"))
+            if rec is not None and int(rec["frames_written"]) > 0:
+                written, halo = self._resume_causal(rec, reader, writer)
         while True:
             with timer.stage("decode"):
                 chunk = reader.read_batch(t_chunk)
@@ -225,18 +522,17 @@ class Stabilizer:
                 dev_chunk = put_frames(self._pad(chunk), self.device)
             with timer.stage("compute"):
                 out, halo, _ = self._chunk(dev_chunk, halo)
-                if out.is_cuda:
-                    torch.cuda.synchronize(out.device)
+                self._sync(out)
             with timer.stage("d2h"):
                 host_out = fetch_frames(out[:n_valid])
             with timer.stage("encode"):
                 writer.write_batch(host_out)
             written += n_valid
-            if state_path:
-                tmp = os.path.join(resume_dir, "resume_state.tmp.npz")
-                np.savez(tmp, halo=halo.cpu().numpy(),
-                         frames_written=written)
-                os.replace(tmp, state_path)    # atomic flush
+            if resume_dir:
+                extra = ({"smooth_state": self._smooth_state.cpu().numpy()}
+                         if self.cfg.path_smooth > 0 else {})
+                _save_record(resume_dir, halo=halo.cpu().numpy(),
+                             frames_written=written, **extra)
             if n_valid < t_chunk:
                 break
         return written

@@ -287,3 +287,103 @@ def test_train_step_on_the_card_matches_the_cpu(dev):
     for n, g in totals["cpu"][1].items():
         scale = float(g.abs().max())
         assert float((totals["cuda"][1][n] - g).abs().max()) <= 1e-3 * scale
+
+
+# --- path smoothing, online push and the overlapped stream on the card ------
+
+def _smooth_setup(**kw):
+    from dvsg_tpu_torch.config import ModelConfig, StabilizeConfig
+    from dvsg_tpu_torch.models import motion_cnn
+    from dvsg_tpu_torch.train import synthetic
+    mcfg = ModelConfig(window=3, model_size=(32, 32), grid_size=(8, 8),
+                       base_features=8, blocks_per_level=1)
+    gen = torch.Generator().manual_seed(0)
+    params = motion_cnn.init_params(mcfg, gen)
+    params["head_out.weight"] = 0.05 * torch.randn(
+        params["head_out.weight"].shape, generator=gen)
+    frames = synthetic.synthetic_clip_u8(
+        torch.Generator().manual_seed(3), 14, 40, 48)[0].numpy()
+    cfg = StabilizeConfig(model=mcfg, chunk_frames=4, path_smooth=8, **kw)
+    return cfg, params, frames
+
+
+@pytest.mark.parametrize("lag", [0, 4])
+def test_smoothed_chunk_steps_on_the_card_match_the_cpu(dev, lag):
+    """The smoothed and lag clips on the card within 1 LSB of the CPU
+    path, each chunk through the packed offsets kernel; one chunk step
+    again under sync debug mode "error": no host synchronization."""
+    from dvsg_tpu_torch.pipeline import pathsmooth
+    from dvsg_tpu_torch.pipeline import stabilize as stab_lib
+    cfg, params, frames = _smooth_setup(path_smooth_lag=lag)
+    cpu = stab_lib.Stabilizer(cfg, params, device="cpu")
+    card = stab_lib.Stabilizer(cfg, params, device=dev)
+    before = warp_wide.LAUNCHES_PACKED
+    got = card.stabilize_clip(frames)
+    chunks = -(-(len(frames) + lag) // cfg.chunk_frames)
+    assert warp_wide.LAUNCHES_PACKED == before + chunks
+    assert np.abs(got.astype(int) - cpu.stabilize_clip(frames)).max() <= 1
+    with torch.inference_mode():
+        chunk = stab_lib.put_frames(frames[:4], dev)
+        halo = card._initial_halo(frames[0])
+        if lag:
+            carry = card._init_lag_carry(frames[0])
+            step = lambda: stab_lib.stabilize_chunk_lag_impl(
+                cfg, card.model, chunk, halo, *carry)
+        else:
+            state = pathsmooth.initial_state(dev)
+            step = lambda: stab_lib.stabilize_chunk_smooth_impl(
+                cfg, card.model, chunk, halo, state)
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def test_online_push_on_the_card_equals_clip(dev):
+    from dvsg_tpu_torch.pipeline.online import OnlineStabilizer
+    from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
+    cfg, params, frames = _smooth_setup()
+    want = Stabilizer(cfg, params, device=dev).stabilize_clip(frames)
+    online = OnlineStabilizer(cfg, params, device=dev)
+    got = [f for frame in frames for f in online.push(frame)]
+    got += online.flush()
+    np.testing.assert_array_equal(np.stack(got), want)
+
+
+class _Reader:
+    def __init__(self, frames):
+        self.frames, self.pos = frames, 0
+
+    def read_batch(self, n):
+        out = self.frames[self.pos:self.pos + n]
+        self.pos += len(out)
+        return out
+
+
+class _Writer:
+    def __init__(self):
+        self.chunks = []
+
+    def write_batch(self, frames):
+        self.chunks.append(np.array(frames))
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_overlapped_stream_on_the_card_equals_sync(dev, depth):
+    """Pinned staging rings, the copy stream and its events: the
+    overlapped stream gives the sync stream's bytes, run after run."""
+    from dvsg_tpu_torch.pipeline.overlap import stabilize_stream_overlapped
+    from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
+    cfg, params, frames = _smooth_setup()
+    cfg = cfg.replace(queue_depth=depth)
+    stab = Stabilizer(cfg, params, device=dev)
+    want = stab.stabilize_clip(frames)
+    for _ in range(3):
+        w = _Writer()
+        assert stabilize_stream_overlapped(stab, _Reader(frames), w) \
+            == len(frames)
+        np.testing.assert_array_equal(np.concatenate(w.chunks), want)

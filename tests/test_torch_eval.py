@@ -156,8 +156,15 @@ def test_eval_cli_default_is_the_committed_fast_model(capsys):
     assert gain > 0          # the shipped weights stabilize
 
 
-@pytest.mark.parametrize("flags", [["--path-smooth", "8"],
-                                   ["--path-smooth-lag", "4"],
+def test_eval_cli_with_path_smoothing(capsys):
+    """eval --path-smooth runs the smoothed Stabilizer and reports."""
+    assert cli.eval_main(["--clips", "1", "--frames", "8", "--size", "32",
+                          "48", "--chunk-frames", "4", "--path-smooth",
+                          "8"] + SMALL) == 0
+    assert "psnr_gain_db" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags", [["--path-smooth-lag", "4"],
                                    ["--dtype", "bfloat16"],
                                    ["--preset", "fast", "--checkpoint", "x"],
                                    ["--chunk-frames", "0"]])

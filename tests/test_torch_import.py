@@ -44,6 +44,8 @@ def test_port_imports_no_jax():
     env["PYTHONPATH"] = ROOT
     mods = _port_modules()
     assert "dvsg_tpu_torch.train.loop" in mods and len(mods) > 20
+    assert {f"dvsg_tpu_torch.pipeline.{m}" for m in
+            ("pathsmooth", "autocrop", "online", "overlap")} <= set(mods)
     res = subprocess.run([sys.executable, "-c", _PROBE.format(mods=mods)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
@@ -95,12 +97,19 @@ def test_unsupported_device_rejected(device):
 
 @pytest.mark.parametrize("kw", [dict(path_smooth=8),
                                 dict(path_smooth=8, path_smooth_lag=4)])
-def test_path_smoothing_not_ported(kw):
+def test_path_smoothing_runs_on_the_cpu(kw):
+    """A smoothing config (causal or fixed-lag) builds a CPU Stabilizer and
+    stabilizes a clip, carrying its smoothing state."""
     mcfg = ModelConfig(window=3, model_size=(32, 32), grid_size=(8, 8),
                        base_features=8, blocks_per_level=1)
     params = MotionEstimator(mcfg).state_dict()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Stabilizer(StabilizeConfig(model=mcfg, **kw), params, device="cpu")
+    stab = Stabilizer(StabilizeConfig(model=mcfg, chunk_frames=4, **kw),
+                      params, device="cpu")
+    frames = np.random.default_rng(0).integers(0, 256, (6, 32, 40, 3),
+                                               dtype=np.uint8)
+    out = stab.stabilize_clip(frames)
+    assert out.shape == frames.shape and out.dtype == np.uint8
+    assert stab.chunks_seen == 2 + (kw.get("path_smooth_lag", 0) > 0)
 
 
 def test_config_dict_roundtrip_matches_reference():

@@ -156,16 +156,39 @@ def test_stream_with_resume_equals_clip(clip, fast, tmp_path):
     assert timer.summary()["compute"]["count"] == 1
 
 
-def test_stream_refuses_a_smoothing_record(clip, fast, tmp_path):
+def test_stream_resumes_a_smoothing_record(clip, fast, tmp_path):
+    """A causal smoothing stream's record (halo + EMA state) resumes
+    byte-identical to the clip path; a record of the wrong kind raises."""
     frames, _ = clip
-    resume = tmp_path / "r"
-    resume.mkdir()
-    np.savez(resume / "resume_state.npz", halo=np.zeros((4, 128, 128, 3)),
-             frames_written=4, smooth_state=np.zeros(4))
-    with pytest.raises(ValueError, match="not ported yet"):
-        _stab(fast, chunk_frames=4).stabilize_stream(
-            MemReader(frames), MemWriter(np.zeros_like(frames)),
-            resume_dir=str(resume))
+    stab = _stab(fast, chunk_frames=4, path_smooth=8)
+    want = stab.stabilize_clip(frames)
+    resume = str(tmp_path / "r")
+    got = np.zeros_like(frames)
+    assert stab.stabilize_stream(MemReader(frames[:8]), MemWriter(got),
+                                 resume_dir=resume) == 8
+    with np.load(os.path.join(resume, "resume_state.npz")) as z:
+        assert z["smooth_state"].shape == (4,)
+    got[8:] = 0
+    assert stab.stabilize_stream(MemReader(frames), MemWriter(got),
+                                 resume_dir=resume) == len(frames)
+    np.testing.assert_array_equal(got, want)
+    for kw, match in ((dict(), "carries a path-smoothing"),
+                      (dict(path_smooth=8, path_smooth_lag=4),
+                       "without the lag smoother")):
+        with pytest.raises(ValueError, match=match):
+            _stab(fast, chunk_frames=4, **kw).stabilize_stream(
+                MemReader(frames), MemWriter(got), resume_dir=resume)
+    np.savez(os.path.join(resume, "resume_state.npz"), frames_written=4,
+             halo=np.zeros((4, 128, 128, 3), np.float32),
+             lag_offsets=np.zeros((4, 16, 16, 2), np.float32))
+    with pytest.raises(ValueError, match="path-smooth-lag run"):
+        stab.stabilize_stream(MemReader(frames), MemWriter(got),
+                              resume_dir=resume)
+    np.savez(os.path.join(resume, "resume_state.npz"), frames_written=4,
+             halo=np.zeros((4, 128, 128, 3), np.float32))
+    with pytest.raises(ValueError, match="without path smoothing"):
+        stab.stabilize_stream(MemReader(frames), MemWriter(got),
+                              resume_dir=resume)
 
 
 def _write_dir(path, frames):
@@ -205,21 +228,66 @@ def test_cli_resume_dir_and_quality_preset(clip, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--path-smooth", "32"], ["--path-smooth-lag", "8"],
-    ["--path-smooth-no-rotation"], ["--overlap"], ["--artifact", "m.dvsgx"],
-    ["--profile-dir", "p"], ["--border-crop", "auto"],
+    ["--artifact", "m.dvsgx"], ["--profile-dir", "p"],
     ["--border-crop", "0.5"], ["--strength", "3"], ["--chunk-frames", "0"],
-    ["--checkpoint", "nope.npz"],
+    ["--checkpoint", "nope.npz"], ["--path-smooth-lag", "8"],
 ])
 def test_cli_refuses_unported_and_bad_flags(tmp_path, extra, capsys):
     rc = cli.main(["stabilize", "--input", str(tmp_path), "--output",
                    str(tmp_path / "o"), "--platform", "cpu", *extra])
     assert rc == 2
     err = capsys.readouterr().err
-    if extra[0] in ("--path-smooth", "--path-smooth-lag", "--overlap",
-                    "--artifact", "--profile-dir",
-                    "--path-smooth-no-rotation") or "auto" in extra:
+    if extra[0] in ("--artifact", "--profile-dir"):
         assert "not ported yet" in err
+    if extra[0] == "--path-smooth-lag":       # a lag needs a horizon
+        assert "path_smooth_lag needs path_smooth" in err
+
+
+@pytest.mark.parametrize("flags,kw", [
+    (["--path-smooth", "32"], dict(path_smooth=32)),
+    (["--path-smooth", "8", "--path-smooth-lag", "4"],
+     dict(path_smooth=8, path_smooth_lag=4)),
+    (["--path-smooth", "8", "--path-smooth-no-rotation",
+      "--path-smooth-no-scale", "--path-smooth-max", "0.03",
+      "--path-smooth-conf", "3", "--path-smooth-cut", "1"],
+     dict(path_smooth=8, path_smooth_rotation=False,
+          path_smooth_scale=False, path_smooth_max=0.03,
+          path_smooth_conf=3.0, path_smooth_cut=1.0)),
+    (["--overlap", "--path-smooth", "8"], dict(path_smooth=8)),
+], ids=["path-smooth", "path-smooth-lag", "path-smooth-options", "overlap"])
+def test_cli_smoothing_flags_match_library(clip, fast, tmp_path, flags, kw):
+    """The CLI's output equals the library's stabilize_clip for the
+    config its flags describe."""
+    frames = clip[0][:6]
+    _write_dir(tmp_path / "in", frames)
+    rc = cli.main(["stabilize", "--input", str(tmp_path / "in"),
+                   "--output", str(tmp_path / "out"), "--platform", "cpu",
+                   "--chunk-frames", "4", *flags])
+    assert rc == 0
+    want = _stab(fast, chunk_frames=4, **kw).stabilize_clip(frames)
+    np.testing.assert_array_equal(_read_dir(tmp_path / "out"), want)
+
+
+def test_cli_border_crop_auto_prints_its_scan(clip, fast, tmp_path, capsys):
+    """--border-crop auto scans first, reports the crop (reserving the
+    smoothing margin), and stabilizes with it."""
+    from dvsg_tpu_torch.pipeline import autocrop
+    frames = clip[0][:6]
+    _write_dir(tmp_path / "in", frames)
+    rc = cli.main(["stabilize", "--input", str(tmp_path / "in"),
+                   "--output", str(tmp_path / "out"), "--platform", "cpu",
+                   "--chunk-frames", "4", "--border-crop", "auto",
+                   "--path-smooth", "8"])
+    assert rc == 0
+    err = capsys.readouterr().err
+    assert "auto border-crop: max |offset|" in err
+    cfg = StabilizeConfig(model=fast[1], chunk_frames=4, path_smooth=8)
+    crop, _, _ = autocrop.pick_border_crop(cfg, fast[0], frames,
+                                           device="cpu")
+    assert f"-> crop {crop:.4f} ({round(crop * 64)}/64" in err
+    want = _stab(fast, chunk_frames=4, path_smooth=8,
+                 border_crop=crop).stabilize_clip(frames)
+    np.testing.assert_array_equal(_read_dir(tmp_path / "out"), want)
 
 
 def test_cli_resume_needs_frame_dir_output(tmp_path):
