@@ -58,7 +58,19 @@ on failure:
    queued behind a long kernel. The two offsets kernels, the two
    dense-grid uint8 kernels and the stage variants of each pair (each
    strips one part of a kernel) are timed in turns, beside their SASS
-   lengths.
+   lengths;
+8. batch and serve, both presets, 1280x720: four seeded clips of 48, 40,
+   33 and 17 frames from four threads at once through ``BatchStabilizer``
+   (plain, causal, lag; one group), and through ``stabilize_multi``
+   (plain, causal), each clip byte-equal to ``stabilize_clip`` with one
+   offsets-kernel launch per batched chunk; every clip of eight byte-equal
+   in batches of 1, 2, 4 and 8 and alone, and at T = 8 against 16 (plain,
+   causal, lag); the batched step's times per chunk at B = 1, 2, 4, 8,
+   back to back and queued, and its peak memory at B = 8; eight 48-frame
+   clips end to end through ``stabilize_multi`` beside one after another
+   through the sync stream; and where OpenCV imports, one mp4 POSTed to a
+   localhost server (``dvsg_tpu_torch/serve.py``) whose response equals
+   the single-clip output, encoded.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes every
@@ -90,8 +102,11 @@ from dvsg_tpu_torch.ops import grid as grid_ops
 from dvsg_tpu_torch.ops import resize as resize_ops
 from dvsg_tpu_torch.ops import warp as warp_ops
 from dvsg_tpu_torch.ops import warp_bilinear, warp_ref, warp_wide
+from dvsg_tpu_torch.parallel import dp
 from dvsg_tpu_torch.pipeline import autocrop, pathsmooth
 from dvsg_tpu_torch.pipeline import stabilize as stab_lib
+from dvsg_tpu_torch.pipeline.batching import BatchStabilizer
+from dvsg_tpu_torch.pipeline.multiclip import stabilize_multi
 from dvsg_tpu_torch.pipeline.online import OnlineStabilizer
 from dvsg_tpu_torch.pipeline.overlap import stabilize_stream_overlapped
 from dvsg_tpu_torch.train import eval as eval_lib
@@ -319,10 +334,11 @@ def interior(a: np.ndarray, border: float = 0.125) -> np.ndarray:
 
 
 class MemReader:
-    """In-memory reader with the VideoReader methods the stream uses."""
+    """In-memory reader with the VideoReader methods the streams use."""
 
     def __init__(self, frames: np.ndarray):
         self.frames, self.pos = frames, 0
+        self.height, self.width = frames.shape[1:3]
 
     def read_batch(self, n: int) -> np.ndarray:
         out = self.frames[self.pos:self.pos + n]
@@ -1607,6 +1623,343 @@ def time_dense_kernels(rng, dev) -> dict:
     return recs
 
 
+# --- batch and serve -------------------------------------------------------
+
+# Phase 8: the lengths of the four concurrent requests, the clips and
+# frames of the invariance and multi-clip runs, the batch sizes timed.
+BATCH_LENS = (48, 40, 33, 17)
+N_CLIPS, CLIP_FRAMES, INVARIANCE_FRAMES = 8, 48, 32
+BATCH_SIZES = (1, 2, 4, 8)
+
+
+def counted(name: str, expected: int, fn):
+    """``fn()`` with the offsets kernel's counts set to 0 just before and
+    read just after; fails unless it launched ``expected`` times, all the
+    packed kernel. Returns (result, launches)."""
+    warp_wide.LAUNCHES = warp_wide.LAUNCHES_PACKED = 0
+    out = fn()
+    torch.cuda.synchronize()
+    n, n_packed = warp_wide.LAUNCHES, warp_wide.LAUNCHES_PACKED
+    if n != expected or n_packed != expected:
+        raise AssertionError(f"{name}: {n} launches ({n_packed} packed) for "
+                             f"{expected} batched chunks")
+    return out, n
+
+
+def same_bytes(name: str, got, want) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or not np.array_equal(g, w):
+            n = (int((g != w).sum()) if g.shape == w.shape
+                 else f"shape {g.shape} vs {w.shape}")
+            raise AssertionError(f"{name}: clip {i} differs from "
+                                 f"Stabilizer.stabilize_clip ({n} bytes)")
+
+
+def drive(cfg: StabilizeConfig, model, clips: np.ndarray, dev):
+    """A clip batch through the batched step of ``cfg``'s mode."""
+    step = dp.batch_step(cfg)
+    if cfg.path_smooth_lag > 0:
+        return stab_lib.drive_chunked_batch_lag(step, model, cfg, clips)
+    if cfg.path_smooth > 0:
+        step = pathsmooth.thread_batch_state(step, len(clips), dev)
+    return stab_lib.drive_chunked_batch(step, model, cfg, clips)
+
+
+def concurrent_requests(engine, clips) -> list:
+    """Each clip from its own thread, all at once."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(len(clips)) as ex:
+        return list(ex.map(engine.stabilize_clip, clips))
+
+
+def multi_run(cfg, params, clips) -> tuple:
+    """stabilize_multi over in-memory readers and writers: (outputs,
+    seconds, stage totals)."""
+    writers = [MemWriter(len(c), c.shape[1:]) for c in clips]
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = stabilize_multi(cfg, params, [MemReader(c) for c in clips],
+                          writers, timer=timer, device="cuda")
+    wall = time.perf_counter() - t0
+    if not res.ok or res.frames_written != [len(c) for c in clips]:
+        raise AssertionError(f"stabilize_multi: {res}")
+    return ([w.frames for w in writers], wall,
+            {k: v["total_s"] for k, v in timer.summary().items()})
+
+
+def serve_roundtrip(cfg, params, clip: np.ndarray, work_dir: str) -> dict:
+    """One mp4 POSTed to a localhost server on the card: the response's
+    container equals encoding the single-clip output of the decoded
+    upload. Returns the response's details."""
+    import threading
+    import urllib.request
+    from dvsg_tpu_torch import serve
+    from dvsg_tpu_torch.utils import video_io
+
+    def encode(path, frames):
+        with video_io.VideoWriter(path, frames.shape[2], frames.shape[1],
+                                  fps=24.0) as w:
+            w.write_batch(frames)
+        with open(path, "rb") as f:
+            return f.read()
+
+    payload = encode(os.path.join(work_dir, "up.mp4"), clip)
+    with video_io.VideoReader(os.path.join(work_dir, "up.mp4")) as r:
+        decoded = r.read_batch(len(clip) + 1)
+    want = encode(os.path.join(work_dir, "want.mp4"), stab_lib.Stabilizer(
+        cfg, params, device="cuda").stabilize_clip(decoded))
+    engine = BatchStabilizer(cfg, params, max_batch=8, window_s=0.005,
+                             device="cuda")
+    srv = serve.make_server("127.0.0.1", 0, engine, "chip-smoke")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        req = urllib.request.Request(url + "/stabilize", data=payload,
+                                     method="POST")
+        warp_wide.LAUNCHES = 0
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, frames, body = r.status, r.headers["X-Frames"], r.read()
+        launches = warp_wide.LAUNCHES
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+        engine.close()
+    if status != 200 or frames != str(len(decoded)) or body != want:
+        raise AssertionError(f"serve: status {status}, {frames} frames, "
+                             f"response equal {body == want}")
+    if launches != math.ceil(len(decoded) / T_CHUNK):
+        raise AssertionError(f"serve: {launches} launches")
+    if health["device"] != str(engine.device):
+        raise AssertionError(f"serve /healthz: {health}")
+    return {"frames": len(decoded), "upload_bytes": len(payload),
+            "response_bytes": len(body), "launches": launches,
+            "healthz": health}
+
+
+@torch.inference_mode()
+def batch_step_times(cfg, model, clips: np.ndarray, dev) -> dict:
+    """Per batched T-chunk at B = 1, 2, 4, 8: ms back to back and queued,
+    device frames/s (queued), and the peak device memory of one B = 8
+    step."""
+    out = {}
+    for b in BATCH_SIZES:
+        frames = stab_lib.put_frames(clips[:b, :T_CHUNK], dev)
+        halos = torch.stack([stab_lib.initial_halo(cfg, c[0], dev)
+                             for c in clips[:b]])
+        if cfg.path_smooth > 0:
+            states = torch.zeros((b, pathsmooth.STATE_DIM), device=dev)
+            fn = lambda: dp._stabilize_chunk_batch_smooth(
+                cfg, model, frames, halos, states)
+        else:
+            fn = lambda: dp._stabilize_chunk_batch(cfg, model, frames, halos)
+        rec = {"b2b_ms": b2b_ms(fn), "queued_ms": queued_ms(fn)}
+        rec["device_fps"] = 1e3 * T_CHUNK * b / rec["queued_ms"]
+        rec["b2b_fps"] = 1e3 * T_CHUNK * b / rec["b2b_ms"]
+        if b == BATCH_SIZES[-1]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            rec["peak_mem_above_inputs_bytes"] = \
+                torch.cuda.max_memory_allocated() - base
+        out[b] = rec
+        del frames, halos
+    return out
+
+
+@torch.inference_mode()
+def no_host_sync_batched(cfgs, model, clips: np.ndarray, dev) -> None:
+    """The batched smoothed and lag steps over four clips, once each
+    after a warm-up call, under ``set_sync_debug_mode("error")``."""
+    b = 4
+    frames = stab_lib.put_frames(clips[:b, :T_CHUNK], dev)
+    halos = torch.stack([stab_lib.initial_halo(cfgs["causal"], c[0], dev)
+                         for c in clips[:b]])
+    states = torch.zeros((b, pathsmooth.STATE_DIM), device=dev)
+    carries = stab_lib.init_lag_carries(cfgs["lag"], clips[:b, 0], dev)
+    steps = (lambda: dp._stabilize_chunk_batch_smooth(
+                 cfgs["causal"], model, frames, halos, states),
+             lambda: dp._stabilize_chunk_batch_lag(
+                 cfgs["lag"], model, frames, halos, carries))
+    for step in steps:
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def phase_batch(seed: int, dev, work_dir: str):
+    """Batch and serve, both presets, 1280x720: the concurrent engine, the
+    multi-clip driver and the serving round trip byte-equal to the
+    single-clip path with one offsets-kernel launch per batched chunk;
+    batch-size and chunk-size invariance; the batched step's times and
+    peak memory; stabilize_multi end to end. Returns (launches of the
+    offsets kernel in these runs, results)."""
+    clips = np.stack([make_clip(seed + 40 + i, CLIP_FRAMES, HEIGHT, WIDTH,
+                                dev)[0] for i in range(N_CLIPS)])
+    reqs = [clips[i, :n] for i, n in enumerate(BATCH_LENS)]
+    chunks = math.ceil(max(BATCH_LENS) / T_CHUNK)
+    lag_chunks = math.ceil((max(BATCH_LENS) + LAG) / T_CHUNK)
+    inv = clips[:, :INVARIANCE_FRAMES]
+    try:
+        import cv2  # noqa: F401 — the server decodes and encodes with it
+        have_cv2 = True
+    except ImportError:
+        have_cv2 = False
+    launches = 0
+    results = {}
+    for preset, ckpt in PRESETS:
+        params, mcfg = load_npz(os.path.join(ROOT, "checkpoints", ckpt))
+        base = StabilizeConfig(model=mcfg, chunk_frames=T_CHUNK)
+        cfgs = {"plain": base, "causal": base.replace(path_smooth=SMOOTH),
+                "lag": base.replace(path_smooth=SMOOTH,
+                                    path_smooth_lag=LAG)}
+        want = {m: [stab_lib.Stabilizer(c, params, device="cuda")
+                    .stabilize_clip(r) for r in reqs]
+                for m, c in cfgs.items()}
+        res = {"engine": {}, "multi": {}}
+        for mode, cfg in cfgs.items():
+            engine = BatchStabilizer(cfg, params, max_batch=len(reqs),
+                                     window_s=10.0, device="cuda")
+            try:
+                got, n = counted(f"[{preset} {mode}] BatchStabilizer",
+                                 lag_chunks if cfg.path_smooth_lag
+                                 else chunks,
+                                 lambda: concurrent_requests(engine, reqs))
+                stats = dict(engine.stats)
+            finally:
+                engine.close()
+            launches += n
+            if stats["batches"] != 1 or stats["max_group"] != len(reqs):
+                raise AssertionError(f"[{preset} {mode}] engine {stats}")
+            same_bytes(f"[{preset} {mode}] BatchStabilizer", got,
+                       want[mode])
+            res["engine"][mode] = {"launches": n, "stats": stats}
+            if mode != "lag":
+                (got, _, _), n = counted(
+                    f"[{preset} {mode}] stabilize_multi", chunks,
+                    lambda: multi_run(cfg, params, reqs))
+                launches += n
+                same_bytes(f"[{preset} {mode}] stabilize_multi", got,
+                           want[mode])
+                res["multi"][mode] = {"launches": n}
+        log(f"  [{preset}] {len(reqs)} concurrent requests "
+            f"({', '.join(map(str, BATCH_LENS))} frames) through "
+            f"BatchStabilizer: one group, plain / causal / lag == "
+            f"stabilize_clip bytewise, {chunks} / {chunks} / {lag_chunks} "
+            f"launches; stabilize_multi plain / causal == stabilize_clip, "
+            f"{chunks} launches each")
+
+        # Batch-size and chunk-size invariance, bytewise.
+        model = stab_lib.build_model(mcfg, params, dev)
+        inv_res = {}
+        for mode, cfg in cfgs.items():
+            single = [stab_lib.Stabilizer(cfg, params, device="cuda")
+                      .stabilize_clip(c) for c in inv]
+            n_chunks = math.ceil((INVARIANCE_FRAMES + cfg.path_smooth_lag)
+                                 / T_CHUNK)
+            for b in BATCH_SIZES:
+                out, n = counted(f"[{preset} {mode}] B={b}", n_chunks,
+                                 lambda: drive(cfg, model, inv[:b], dev))
+                launches += n
+                same_bytes(f"[{preset} {mode}] batch of {b}", out,
+                           single[:b])
+            # T = 8 against 16 (a lag of at most 8 frames fits both).
+            short = cfg.replace(path_smooth_lag=min(cfg.path_smooth_lag, 8))
+            t8, t16 = (stab_lib.Stabilizer(short.replace(chunk_frames=t),
+                                           params, device="cuda")
+                       .stabilize_clip(inv[0]) for t in (8, T_CHUNK))
+            if not np.array_equal(t8, t16):
+                raise AssertionError(
+                    f"[{preset} {mode}] T=8 differs from T={T_CHUNK} in "
+                    f"{int((t8 != t16).sum())} bytes")
+            inv_res[mode] = {"chunks": n_chunks}
+        res["invariance"] = inv_res
+        no_host_sync_batched(cfgs, model, clips, dev)
+        log(f"  [{preset}] {N_CLIPS} clips of {INVARIANCE_FRAMES} frames: "
+            f"each clip's bytes equal in batches of "
+            f"{', '.join(map(str, BATCH_SIZES))} and alone, and at T = 8 "
+            f"and {T_CHUNK} (plain, causal, lag 8); one launch per batched "
+            f"chunk; no host sync in the batched smoothed and lag steps")
+
+        # Times of the batched step, and peak memory at B = 8.
+        times = {m: batch_step_times(cfgs[m], model, clips, dev)
+                 for m in ("plain", "causal")}
+        res["step"] = times
+        for m, by_b in times.items():
+            log(f"  [{preset} {m}] batched step per T={T_CHUNK} chunk, ms "
+                f"back to back / queued (device frames/s): " + "; ".join(
+                    f"B={b} {r['b2b_ms']:.4f} / {r['queued_ms']:.4f} "
+                    f"({r['device_fps']:.1f})" for b, r in by_b.items()))
+        peaks = [t[BATCH_SIZES[-1]] for t in times.values()]
+        log(f"  [{preset}] peak device memory of one B={BATCH_SIZES[-1]} "
+            f"step, plain / causal: " + " / ".join(
+                f"{p['peak_mem_bytes'] / 2**30:.3f} GiB "
+                f"({p['peak_mem_above_inputs_bytes'] / 2**30:.3f} GiB above "
+                f"what was allocated before it)" for p in peaks))
+        del model
+
+        # stabilize_multi end to end on all clips, beside the same clips one
+        # after another through the sync stream, in turns.
+        runs = {"multi": [], "sequential": []}
+        for kind in ("multi", "sequential", "sequential", "multi"):
+            if kind == "multi":
+                _, wall, stages = multi_run(base, params, list(clips))
+            else:
+                stab = stab_lib.Stabilizer(base, params, device="cuda")
+                timer = StageTimer()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for c in clips:
+                    stab.stabilize_stream(MemReader(c), MemWriter(
+                        len(c), c.shape[1:]), timer=timer)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                stages = {k: v["total_s"]
+                          for k, v in timer.summary().items()}
+            runs[kind].append({"s": wall, "fps": clips.shape[0]
+                               * clips.shape[1] / wall, "stage_s": stages})
+        res["e2e"] = runs
+        log(f"  [{preset}] {N_CLIPS} clips x {CLIP_FRAMES} frames end to "
+            f"end, frames/s: stabilize_multi "
+            + " / ".join(f"{r['fps']:.1f}" for r in runs["multi"])
+            + " (" + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in
+                               runs["multi"][0]["stage_s"].items())
+            + "); one clip after another (sync stream) "
+            + " / ".join(f"{r['fps']:.1f}" for r in runs["sequential"])
+            + " (" + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in
+                               runs["sequential"][0]["stage_s"].items())
+            + ")")
+        if preset == "fast":
+            if have_cv2:
+                warp_wide.LAUNCHES_PACKED = 0
+                rec = serve_roundtrip(base, params, clips[0, :24], work_dir)
+                launches += rec["launches"]
+                res["serve"] = rec
+                log(f"  [{preset}] serve: one {rec['frames']}-frame mp4 "
+                    f"({rec['upload_bytes']} bytes) POSTed to a localhost "
+                    f"server: 200, response container == the single-clip "
+                    f"output encoded, {rec['launches']} launches; /healthz "
+                    f"device {rec['healthz']['device']}")
+            else:
+                res["serve"] = None
+                log("  serve: not driven (OpenCV does not import here; the "
+                    "server decodes and encodes uploads with it)")
+        results[preset] = res
+    return launches, results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1665,6 +2018,11 @@ def main(argv=None) -> int:
     phase_train_times(args.seed, train_results)
     dense = time_dense_kernels(rng, dev)
 
+    log("== phase 8: batch and serve, both presets, 1280x720")
+    with tempfile.TemporaryDirectory() as work_dir:
+        batch_launches, batch_results = phase_batch(args.seed, dev, work_dir)
+    launches += batch_launches
+
     def entry(name, source, replaces, n_launches, err, rec):
         return {"name": name, "route": "cuda",
                 "source": f"dvsg_tpu_torch/csrc/{source}.cu",
@@ -1698,7 +2056,7 @@ def main(argv=None) -> int:
               "cuda": torch.version.cuda, "seed": args.seed,
               "kernels": kernels, "b1": b1, "dense_kernels": dense,
               "presets": results, "smoothing": smooth_results,
-              "training": train_results,
+              "training": train_results, "batch": batch_results,
               "eval": eval_results, "build_s": build_s, "ptxas": ptxas,
               "build_each_s": build_each,
               "wall_s": time.perf_counter() - t_start}

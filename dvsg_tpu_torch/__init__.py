@@ -11,6 +11,12 @@ from __future__ import annotations
 
 import torch
 
+from dvsg_tpu_torch.config import (  # noqa: F401
+    ModelConfig,
+    StabilizeConfig,
+    TrainConfig,
+)
+
 __version__ = "0.1.0"
 
 

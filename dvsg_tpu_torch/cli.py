@@ -3,15 +3,23 @@
   python -m dvsg_tpu_torch stabilize --input shaky.mp4 --output stable.mp4
   python -m dvsg_tpu_torch stabilize --input frames/ --output out/ \\
       --preset quality --platform cpu
+  python -m dvsg_tpu_torch stabilize-batch --inputs a.mp4 b.mp4 \\
+      --outputs a_out.mp4 b_out.mp4
   python -m dvsg_tpu_torch train --checkpoint ckpt/ --steps 1000
   python -m dvsg_tpu_torch eval --checkpoint ckpt/ --clips 3
   python -m dvsg_tpu_torch stabilize --input in/ --output out/ \\
       --path-smooth 32 --path-smooth-lag 16 --border-crop auto
+  python -m dvsg_tpu_torch.serve --preset fast --port 8799   (HTTP server)
 
 Every command runs on the CUDA card unless ``--platform cpu`` is given.
-With no ``--checkpoint``/``--preset``, ``stabilize`` and ``eval`` use the
-committed ``fast`` pretrained model. The flags of the reference CLI that
-are not ported yet are accepted by the parser and refused with exit code 2.
+With no ``--checkpoint``/``--preset`` and no model flags, ``stabilize``,
+``stabilize-batch`` and ``eval`` use the committed ``fast`` pretrained
+model; model flags without a checkpoint select an untrained (identity)
+model. ``--checkpoint`` takes a training checkpoint directory or an
+``.npz``. The flags of the reference CLI that are not ported yet are
+accepted by the parser and refused with exit code 2: ``--artifact``,
+``--profile-dir``, ``--dtype bfloat16``, and ``--warp-impl pallas|lax``
+(the port has one warp route).
 """
 
 from __future__ import annotations
@@ -108,6 +116,67 @@ def _checkpoint_path(args) -> str:
     return os.path.join(_CHECKPOINT_DIR, _PRESETS[args.preset or "fast"])
 
 
+def _load_model(args):
+    """(state dict, ModelConfig) that a command's flags select: the
+    --checkpoint (directory or .npz), else the --preset, else with model
+    flags an untrained identity model, else the committed fast model.
+    None, with the message printed, where they select nothing loadable."""
+    if args.dtype not in (None, "float32"):
+        _err(f"--dtype {args.dtype}: not ported yet (float32 only)")
+        return None
+    if args.checkpoint and args.preset:
+        _err("pass --checkpoint or --preset, not both")
+        return None
+    if args.checkpoint or args.preset or not _custom_arch(args):
+        path = _checkpoint_path(args)
+        if not os.path.exists(path):
+            _err(f"checkpoint {path} does not exist")
+            return None
+        return _load_any_checkpoint(path)
+    import torch
+    from dvsg_tpu_torch.models import motion_cnn
+    mcfg = _model_cfg(args)
+    params = motion_cnn.init_params(mcfg, torch.Generator().manual_seed(0))
+    print("WARNING: no --checkpoint given; using an untrained (identity) "
+          "model", file=sys.stderr)
+    return params, mcfg
+
+
+def _add_warp_impl_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--warp-impl", choices=("auto", "pallas", "lax"),
+                   default="auto",
+                   help="accepted for the reference CLI's sake: 'auto' is "
+                        "the port's one warp route (the CUDA kernel on the "
+                        "card, its plain version on the CPU)")
+
+
+def _bad_warp_impl(warp_impl: str) -> bool:
+    """Refuse a warp route the port does not have (printing why)."""
+    if warp_impl == "auto":
+        return False
+    _err(f"--warp-impl {warp_impl}: the port has one warp route, the CUDA "
+         "kernel on the card and its plain version on the CPU (--platform "
+         "cpu); drop --warp-impl")
+    return True
+
+
+def _parse_border_crop(val):
+    """'auto', a float in [0, 0.5), or None (parse error, message
+    printed)."""
+    s = str(val).strip().lower()
+    if s == "auto":
+        return "auto"
+    try:
+        f = float(s)
+    except ValueError:
+        f = -1.0
+    if not 0.0 <= f < 0.5:
+        _err(f"--border-crop must be a fraction in [0, 0.5) or 'auto', got "
+             f"{val!r}")
+        return None
+    return f
+
+
 def _add_smooth_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--path-smooth", type=int, default=0, metavar="FRAMES",
                    help="camera-path smoothing horizon in frames (0 = "
@@ -145,23 +214,80 @@ def _smooth_kwargs(args) -> dict:
                 path_smooth_cut=args.path_smooth_cut)
 
 
-def _run_autocrop_scan(cfg, params, input_path: str, device) -> float:
-    """Pass 1 of --border-crop auto: scan the input with a fresh reader,
-    report on stderr, and return the picked crop fraction."""
+def _run_autocrop_scan(cfg, params, input_paths, device) -> float:
+    """Pass 1 of --border-crop auto: scan the input(s) with fresh readers
+    (several in lockstep, sharing one crop), report on stderr, and return
+    the picked crop fraction."""
     from dvsg_tpu_torch.pipeline import autocrop
     from dvsg_tpu_torch.utils import video_io
     t0 = time.perf_counter()
-    with video_io.VideoReader(input_path) as reader:
-        crop, m, capped = autocrop.pick_border_crop(cfg, params, reader,
-                                                    device)
-    print(f"auto border-crop: max |offset| {m:.4f} -> crop {crop:.4f} "
-          f"({round(crop * autocrop.CROP_DENOM)}/{autocrop.CROP_DENOM}, "
-          f"scan {time.perf_counter() - t0:.1f}s)", file=sys.stderr)
+    readers = [video_io.VideoReader(p_) for p_ in input_paths]
+    try:
+        m = autocrop.scan_readers_max_offset(cfg, params, readers, device)
+    finally:
+        for r in readers:
+            r.close()
+    # The smoothing stage adds up to this much beyond the scanned offsets.
+    m += autocrop.smoothing_margin(cfg)
+    crop, capped = autocrop.crop_for_max_offset(m)
+    extra = (f" (shared over {len(input_paths)} clips)"
+             if len(input_paths) > 1 else "")
+    print(f"auto border-crop{extra}: max |offset| {m:.4f} -> crop "
+          f"{crop:.4f} ({round(crop * autocrop.CROP_DENOM)}/"
+          f"{autocrop.CROP_DENOM}, scan {time.perf_counter() - t0:.1f}s)",
+          file=sys.stderr)
     if capped:
         print("WARNING: clip motion exceeds the largest valid crop "
               "(31/64); residual borders will be edge-clamped",
               file=sys.stderr)
     return crop
+
+
+def _add_common_args(p: argparse.ArgumentParser) -> None:
+    """Flags the stabilize commands share."""
+    p.add_argument("--checkpoint", default=None,
+                   help="training checkpoint directory (from train) or "
+                        ".npz; the committed fast model if omitted (an "
+                        "untrained identity model if model flags are given)")
+    p.add_argument("--preset", choices=tuple(_PRESETS),
+                   help="committed pretrained model: 'fast' (128^2 "
+                        "encoder) or 'quality' (256^2 encoder)")
+    p.add_argument("--chunk-frames", type=int, default=16,
+                   help="frames per device step (default 16)")
+    p.add_argument("--strength", type=float, default=1.0,
+                   help="stabilization strength in [0, 2]: 1 = full "
+                        "correction, 0 = passthrough")
+    p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda",
+                   help="device to run on (default cuda)")
+    p.add_argument("--metrics-out", default=None,
+                   help="append a JSONL metrics record here")
+    _add_warp_impl_arg(p)
+    _add_smooth_args(p)
+    _add_model_args(p)
+
+
+def _check_common(args):
+    """(params, ModelConfig, border crop or 'auto'), or None after printing
+    why the flags are refused."""
+    if _bad_warp_impl(args.warp_impl):
+        return None
+    border_crop = _parse_border_crop(args.border_crop)
+    if border_crop is None:
+        return None
+    if not 0.0 <= args.strength <= 2.0:
+        _err("--strength must be in [0, 2]")
+        return None
+    if args.chunk_frames < 1:
+        _err("--chunk-frames must be >= 1")
+        return None
+    loaded = _load_model(args)
+    return None if loaded is None else (*loaded, border_crop)
+
+
+def _print_stages(timer) -> None:
+    for name, s in timer.summary().items():
+        print(f"  {name:12s} total {s['total_s']:7.2f}s  "
+              f"mean {s['mean_ms']:7.2f}ms x{s['count']}")
 
 
 def stabilize_main(argv=None) -> int:
@@ -173,16 +299,6 @@ def stabilize_main(argv=None) -> int:
                    help="input video file or frame directory")
     p.add_argument("--output", required=True,
                    help="output video file or frame directory")
-    p.add_argument("--checkpoint", default=None,
-                   help="single-file .npz checkpoint")
-    p.add_argument("--preset", choices=tuple(_PRESETS),
-                   help="committed pretrained model: 'fast' (128^2 "
-                        "encoder) or 'quality' (256^2 encoder)")
-    p.add_argument("--chunk-frames", type=int, default=16,
-                   help="frames per device step (default 16)")
-    p.add_argument("--strength", type=float, default=1.0,
-                   help="stabilization strength in [0, 2]: 1 = full "
-                        "correction, 0 = passthrough")
     p.add_argument("--border-crop", default="0",
                    help="crop fraction in [0, 0.5) zoomed into the warp "
                         "(hides stabilized borders), or 'auto': a "
@@ -196,9 +312,7 @@ def stabilize_main(argv=None) -> int:
                    help="overlap decode, compute and encode (threads, "
                         "pinned buffers, a copy stream); no --resume-dir, "
                         "no --path-smooth-lag")
-    p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda",
-                   help="device to run on (default cuda)")
-    _add_smooth_args(p)
+    _add_common_args(p)
     _add_unported(p, _UNPORTED)
     args = p.parse_args(argv)
 
@@ -206,41 +320,24 @@ def stabilize_main(argv=None) -> int:
     if given:
         return _err(f"{', '.join(given)}: not ported yet to the PyTorch "
                     "port (use python -m dvsg_tpu.cli)")
-    auto_crop = args.border_crop.strip().lower() == "auto"
-    try:
-        border_crop = 0.0 if auto_crop else float(args.border_crop)
-    except ValueError:
-        border_crop = -1.0
-    if not 0.0 <= border_crop < 0.5:
-        return _err(f"--border-crop must be a fraction in [0, 0.5) or "
-                    f"'auto', got {args.border_crop!r}")
-    if not 0.0 <= args.strength <= 2.0:
-        return _err("--strength must be in [0, 2]")
-    if args.chunk_frames < 1:
-        return _err("--chunk-frames must be >= 1")
-    if args.checkpoint and args.preset:
-        return _err("pass --checkpoint or --preset, not both")
     if args.overlap and args.resume_dir:
         return _err("--overlap has no resume support; drop --overlap for a "
                     "resumable run (or --resume-dir for an overlapped one)")
-    ckpt = _checkpoint_path(args)
-    if not ckpt.endswith(".npz") or not os.path.exists(ckpt):
-        return _err(f"checkpoint {ckpt} is not an existing .npz file")
-
     from dvsg_tpu_torch.utils import video_io
     if args.resume_dir and video_io.is_container_path(args.output):
         # Opening a container writer truncates it: a resumed job would
         # lose its partial output.
         return _err("--resume-dir needs a frame-directory --output")
+    checked = _check_common(args)
+    if checked is None:
+        return 2
+    params, mcfg, border_crop = checked
 
     from dvsg_tpu_torch.config import StabilizeConfig
     from dvsg_tpu_torch.pipeline import pathsmooth
     from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
-    from dvsg_tpu_torch.utils.checkpoint import load_npz
-    from dvsg_tpu_torch.utils.metrics import StageTimer
+    from dvsg_tpu_torch.utils.metrics import StageTimer, write_metrics_jsonl
 
-    params, mcfg = load_npz(ckpt)
-    print(f"loaded npz checkpoint {ckpt}", file=sys.stderr)
     try:
         cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
                               strength=args.strength, **_smooth_kwargs(args))
@@ -249,10 +346,10 @@ def stabilize_main(argv=None) -> int:
                                   "lag run)")
     except ValueError as e:
         return _err(str(e))
-    if auto_crop:
+    if border_crop == "auto":
         # Pass 1 shares chunking, strength and the smoothing margin with
         # pass 2, so both passes predict the same offsets.
-        border_crop = _run_autocrop_scan(cfg, params, args.input,
+        border_crop = _run_autocrop_scan(cfg, params, [args.input],
                                          args.platform)
     cfg = cfg.replace(border_crop=border_crop)
     stab = Stabilizer(cfg, params, device=args.platform)
@@ -277,10 +374,105 @@ def stabilize_main(argv=None) -> int:
     fps = n / wall if wall > 0 else 0.0
     print(f"stabilized {n} frames at {reader.width}x{reader.height} on "
           f"{stab.device} in {wall:.2f}s ({fps:.1f} fps)")
-    for name, s in timer.summary().items():
-        print(f"  {name:8s} total {s['total_s']:7.2f}s  "
-              f"mean {s['mean_ms']:7.2f}ms x{s['count']}")
+    _print_stages(timer)
+    if args.metrics_out:
+        write_metrics_jsonl(args.metrics_out, {
+            "kind": "stabilize", "frames": n, "wall_s": wall, "fps": fps,
+            "width": reader.width, "height": reader.height,
+            "device": str(stab.device), "stages": timer.summary(),
+            "coverage_fallback_chunks": stab.coverage_fallbacks,
+            "chunks": stab.chunks_seen})
     return 0
+
+
+def stabilize_batch_main(argv=None) -> int:
+    """Stabilize a batch of clips together: one batched device step per
+    chunk for all of them (pipeline/multiclip.py)."""
+    p = argparse.ArgumentParser(
+        prog="python -m dvsg_tpu_torch stabilize-batch",
+        description="Stabilize a batch of same-resolution clips together.")
+    p.add_argument("--inputs", nargs="+", required=True)
+    p.add_argument("--outputs", nargs="+", required=True)
+    p.add_argument("--no-mesh", action="store_true",
+                   help="accepted: per-clip data parallelism over several "
+                        "cards is not ported yet, so the batch runs on one "
+                        "device either way")
+    p.add_argument("--border-crop", default="0",
+                   help="crop fraction, or 'auto': a predict-only scan over "
+                        "all clips picks one shared smallest crop")
+    _add_common_args(p)
+    args = p.parse_args(argv)
+    if len(args.inputs) != len(args.outputs):
+        return _err("--inputs and --outputs must pair up")
+    checked = _check_common(args)
+    if checked is None:
+        return 2
+    params, mcfg, border_crop = checked
+
+    from dvsg_tpu_torch.config import StabilizeConfig
+    from dvsg_tpu_torch.pipeline import pathsmooth
+    from dvsg_tpu_torch.pipeline.multiclip import stabilize_multi
+    from dvsg_tpu_torch.utils import video_io
+    from dvsg_tpu_torch.utils.metrics import StageTimer, write_metrics_jsonl
+
+    try:
+        cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
+                              strength=args.strength, **_smooth_kwargs(args))
+        pathsmooth.lag_reject(cfg, "stabilize-batch (stabilize each clip "
+                              "for a lag run)")
+    except ValueError as e:
+        return _err(str(e))
+    readers = [video_io.VideoReader(p_) for p_ in args.inputs]
+    writers = []
+    try:
+        h, w = readers[0].height, readers[0].width
+        for i, r in enumerate(readers):
+            if (r.height, r.width) != (h, w):
+                # Before any writer exists: opening the writers creates or
+                # truncates every output.
+                return _err(
+                    f"all clips must share one resolution for a batch: "
+                    f"{args.inputs[i]} is {r.width}x{r.height}, "
+                    f"{args.inputs[0]} is {w}x{h}; run them as separate "
+                    "jobs (or through the server, which groups by "
+                    "resolution)")
+        if border_crop == "auto":
+            border_crop = _run_autocrop_scan(cfg, params, args.inputs,
+                                             args.platform)
+        cfg = cfg.replace(border_crop=border_crop)
+        writers = [video_io.VideoWriter(p_, w, h, readers[i].fps)
+                   for i, p_ in enumerate(args.outputs)]
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        result = stabilize_multi(cfg, params, readers, writers, timer=timer,
+                                 device=args.platform)
+        wall = time.perf_counter() - t0
+    finally:
+        # Close even when stabilize_multi raises: it has joined its encode
+        # workers, so this finalizes the partial outputs (the resume
+        # points).
+        for r in readers:
+            r.close()
+        for w_ in writers:
+            w_.close()
+    written = result.frames_written
+    total = sum(written)
+    fps = total / wall if wall else 0.0
+    print(f"stabilized {len(written)} clips / {total} frames at {w}x{h} on "
+          f"{args.platform} in {wall:.2f}s ({fps:.1f} frames/s aggregate)")
+    _print_stages(timer)
+    for i in result.failed_clips:
+        print(f"FAILED clip {args.inputs[i]} after {written[i]} frames: "
+              f"{result.errors[i]} — re-run it (frame-dir outputs resume at "
+              "the written count)", file=sys.stderr)
+    if args.metrics_out:
+        write_metrics_jsonl(args.metrics_out, {
+            "kind": "stabilize_batch", "clips": len(written),
+            "frames": total, "wall_s": wall, "fps": fps,
+            "width": w, "height": h, "device": args.platform,
+            "stages": timer.summary(), "failed_clips": result.failed_clips,
+            "coverage_fallback_chunks": result.coverage_fallback_chunks})
+    return 0 if result.ok else 3
 
 
 def train_main(argv=None) -> int:
@@ -382,32 +574,19 @@ def eval_main(argv=None) -> int:
                         "stabilize --path-smooth-lag)")
     _add_model_args(p)
     args = p.parse_args(argv)
-    if args.dtype not in (None, "float32"):
-        return _err(f"--dtype {args.dtype}: not ported yet (float32 only)")
-    if args.checkpoint and args.preset:
-        return _err("pass --checkpoint or --preset, not both")
     if args.chunk_frames < 1:
         return _err("--chunk-frames must be >= 1")
+    loaded = _load_model(args)
+    if loaded is None:
+        return 2
+    params, mcfg = loaded
 
     import torch
 
     from dvsg_tpu_torch.config import StabilizeConfig
-    from dvsg_tpu_torch.models import motion_cnn
     from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
     from dvsg_tpu_torch.train.eval import evaluate_synthetic
     from dvsg_tpu_torch.utils.metrics import write_metrics_jsonl
-
-    if args.checkpoint or args.preset or not _custom_arch(args):
-        path = _checkpoint_path(args)
-        if not os.path.exists(path):
-            return _err(f"checkpoint {path} does not exist")
-        params, mcfg = _load_any_checkpoint(path)
-    else:
-        mcfg = _model_cfg(args)
-        params = motion_cnn.init_params(mcfg,
-                                        torch.Generator().manual_seed(0))
-        print("WARNING: evaluating an untrained (identity) model",
-              file=sys.stderr)
 
     h, w = args.size
     try:
@@ -460,14 +639,16 @@ def eval_main(argv=None) -> int:
     return 0
 
 
-_COMMANDS = {"stabilize": stabilize_main, "train": train_main,
+_COMMANDS = {"stabilize": stabilize_main,
+             "stabilize-batch": stabilize_batch_main, "train": train_main,
              "eval": eval_main}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] not in _COMMANDS:
-        print("usage: python -m dvsg_tpu_torch {stabilize,train,eval} "
+        print("usage: python -m dvsg_tpu_torch "
+              "{stabilize,stabilize-batch,train,eval} "
               "[options]", file=sys.stderr)
         return 2
     return _COMMANDS[argv[0]](argv[1:])

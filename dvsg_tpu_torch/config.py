@@ -3,13 +3,14 @@
 An own copy of ``ModelConfig``/``StabilizeConfig``/``TrainConfig`` with the
 same field names, defaults and checks as the JAX package's. A checkpoint's
 ``__config__`` record (a ``ModelConfig``) loads into either package, and
-``config_to_json`` writes the record the other reads. A ``StabilizeConfig``
-record of the JAX package does not load here as it is: its ``warp_impl``,
-``mesh_shape`` and ``io_threads`` fields (the warp switch, the device mesh
-and the host I/O pool) have no counterpart in this port, so
-``stabilize_config_from_dict`` refuses them. The chunk size T is a plain
-default (16); resolution-keyed chunk bands are measured per device and are
-not carried over.
+``config_to_json`` writes the record the other reads. ``io_threads`` (the
+host I/O pool size) is carried as the JAX package declares it, and read by
+nothing in either. A JAX ``StabilizeConfig`` record that names
+``warp_impl`` or ``mesh_shape`` (the warp switch and the device mesh, which
+have no counterpart in this port yet) is refused by
+``stabilize_config_from_dict``. The chunk size T is a plain default (16);
+resolution-keyed chunk bands are measured per device and are not carried
+over.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ class StabilizeConfig:
     strength: float = 1.0         # scale on the predicted correction:
                                   # 0 = passthrough, 1 = full, (1, 2] =
                                   # overcorrection
+    io_threads: int = 4           # host decode/encode thread pool size
     queue_depth: int = 3          # staging ring depth of the overlapped
                                   # stream loop (decode, compute, encode)
     path_smooth: int = 0          # cross-chunk camera-path smoothing

@@ -33,6 +33,7 @@ import torch
 from dvsg_tpu_torch.ops import grid as grid_ops
 from dvsg_tpu_torch.ops import resize as resize_ops
 from dvsg_tpu_torch.ops import warp_ref
+from dvsg_tpu_torch.ops.grouped import CHUNK_GROUP, in_groups
 
 # Kernel launches made by warp_u8_offsets in this process (a run reads it
 # before and after to show its main path went through the kernel), and
@@ -74,11 +75,12 @@ def warp_u8_offsets_plain(frames_u8: torch.Tensor, offsets: torch.Tensor,
 
 def offset_rows(offsets: torch.Tensor, h: int) -> torch.Tensor:
     """(B, gh, gw, 2) → (B, H, gw, 2): the vertical half of the offset
-    upsample, one small matrix product, as the reference does it outside
-    its kernel."""
+    upsample, one small matrix product (on the card in calls of a fixed
+    frame count, so a frame's rows do not depend on B: ops/grouped.py), as
+    the reference does it outside its kernel."""
     r = resize_ops._matrix(offsets.shape[1], h, offsets)
-    return torch.einsum("ph,bhwk->bpwk", r,
-                        offsets.to(torch.float32)).contiguous()
+    return in_groups(lambda o: torch.einsum("ph,bhwk->bpwk", r, o),
+                     offsets.to(torch.float32), CHUNK_GROUP).contiguous()
 
 
 def takes_packed_kernel(shape) -> bool:

@@ -3,7 +3,8 @@ zoom that keeps every warp sampling coordinate in the frame.
 
 Pass 1 runs the resize and the CNN only (no warp), and the running max
 stays on the device across chunks, so a whole clip costs one scalar fetch
-at the end.
+at the end; several clips scan in lockstep through one batched step a
+chunk and share the max (``scan_readers_max_offset``).
 
 Crop math. The warp samples x = s·px + (1−s)/2·(W−1) + xoff_px with
 s = 1 − 2·crop: the identity term keeps crop·(W−1) of margin at both edges,
@@ -27,8 +28,9 @@ import torch
 from dvsg_tpu_torch import resolve_device
 from dvsg_tpu_torch.config import StabilizeConfig
 from dvsg_tpu_torch.models import motion_cnn
-from dvsg_tpu_torch.ops import resize as resize_ops
-from dvsg_tpu_torch.pipeline.stabilize import (build_model, initial_halo,
+from dvsg_tpu_torch.pipeline.stabilize import (build_model,
+                                               downscale_frames,
+                                               initial_halo,
                                                predict_chunk_offsets,
                                                put_frames)
 
@@ -43,9 +45,7 @@ def predict_scan_chunk_impl(cfg: StabilizeConfig,
     """Predict-only device step: fold a chunk's max |offset| into the
     device-resident running max. Returns (new_max, new_halo)."""
     t = frames_u8.shape[0]
-    mh, mw = cfg.model.model_size
-    small = resize_ops.downscale_norm(frames_u8, mh, mw)
-    seq = torch.cat([halo, small], dim=0)
+    seq = torch.cat([halo, downscale_frames(cfg, frames_u8)], dim=0)
     offsets = predict_chunk_offsets(cfg, model, seq, t)
     return torch.maximum(running_max, offsets.abs().amax()), seq[t:]
 
@@ -101,6 +101,72 @@ def scan_clip_max_offset(cfg: StabilizeConfig, params: dict,
         chunk = _padded(frames_u8[start:start + t_chunk], t_chunk)
         m, halo = predict_scan_chunk_impl(cfg, model, put_frames(chunk, dev),
                                           halo, m)
+    return float(m)
+
+
+def _scan_batch_impl(cfg: StabilizeConfig,
+                     model: motion_cnn.MotionEstimator,
+                     frames: torch.Tensor, halos: torch.Tensor,
+                     active: torch.Tensor, running_max: torch.Tensor):
+    """Predict-only step over a clip batch (the clip axis folded into the
+    frame axis): fold each active clip's chunk max into the device-resident
+    running max. ``active`` is a (B,) f32 mask; an exhausted clip repeats
+    its last chunk with its contribution masked out (the maxima are
+    non-negative). Returns (new_max, new_halos)."""
+    t = frames.shape[1]
+    seq = torch.cat([halos, downscale_frames(cfg, frames)], dim=1)
+    offsets = predict_chunk_offsets(cfg, model, seq, t)
+    m_b = offsets.abs().flatten(1).amax(dim=1)                 # (B,)
+    return torch.maximum(running_max, (m_b * active).amax()), seq[:, t:]
+
+
+@torch.inference_mode()
+def scan_readers_max_offset(cfg: StabilizeConfig, params: dict, readers,
+                            device="cuda") -> float:
+    """Pass 1 over N same-resolution readers in lockstep, one batched step
+    per chunk (as the batched pass 2 drives them), with one scalar fetch at
+    the end. Equals the max of the per-clip scans: while a clip is active
+    its chunks are those of its single-clip scan (the last one replicate-
+    padded); after it ends its slot repeats its last chunk, masked out."""
+    n = len(readers)
+    if n == 0:
+        return 0.0
+    if n == 1:
+        return scan_stream_max_offset(cfg, params, readers[0], device)
+    dev = resolve_device(device)
+    model = build_model(cfg.model, params, dev)
+    t = cfg.chunk_frames
+    m = torch.zeros((), dtype=torch.float32, device=dev)
+    halos = None
+    last = [None] * n
+    exhausted = [False] * n
+    while True:
+        active = np.zeros((n,), np.float32)
+        chunks = []
+        for i, r in enumerate(readers):
+            c = None
+            if not exhausted[i]:
+                c = r.read_batch(t)
+                if c.shape[0] == 0:
+                    exhausted[i], c = True, None
+                else:
+                    exhausted[i] = c.shape[0] < t  # after this padded step
+                    c = last[i] = _padded(c, t)
+                    active[i] = 1.0
+            if c is None:
+                if last[i] is None:             # a clip empty from the start
+                    last[i] = np.zeros((t, r.height, r.width, 3), np.uint8)
+                c = last[i]
+            chunks.append(c)
+        if not active.any():
+            break
+        batch = np.stack(chunks)
+        if halos is None:
+            halos = torch.stack([initial_halo(cfg, c[0], dev)
+                                 for c in chunks])
+        m, halos = _scan_batch_impl(cfg, model, put_frames(batch, dev),
+                                    halos, torch.from_numpy(active).to(dev),
+                                    m)
     return float(m)
 
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from dvsg_tpu_torch.config import StabilizeConfig
+from dvsg_tpu_torch.ops.grouped import CHUNK_GROUP, in_groups
 
 STATE_DIM = 4      # carried EMA state components: (x, y, θ, log-scale)
 N_UP, SPAN = 25, 1.5          # upsampled correlation: 25 samples, ±1.5 px
@@ -55,25 +56,57 @@ def reject_unsupported(cfg: StabilizeConfig, surface: str) -> None:
     if cfg.path_smooth > 0:
         raise ValueError(
             f"path_smooth is not supported on {surface}; the Stabilizer's "
-            "clip and stream loops, the overlapped stream loop and the "
-            "online push API carry it — this caller opted out explicitly")
+            "clip and stream loops, the overlapped stream loop, the online "
+            "push API, the clip-batch drivers (thread_batch_state), "
+            "stabilize_multi / stabilize-batch and the serving engine carry "
+            "it — this caller opted out explicitly")
 
 
 def lag_reject(cfg: StabilizeConfig, surface: str) -> None:
     """Refuse the fixed-lag mode where its delayed emission cannot work:
     a live consumer (online push) cannot pay a D-frame output delay, and
-    the overlapped loop does not do the emission-shift bookkeeping.
-    Dropping the flag would ship un-lagged output under a lag config."""
+    the overlapped loop and the multi-clip stream driver do not do the
+    emission-shift bookkeeping. Dropping the flag would ship un-lagged
+    output under a lag config."""
     if cfg.path_smooth_lag > 0:
         raise ValueError(
             f"path_smooth_lag is not supported on {surface}; supported: "
             "Stabilizer.stabilize_clip / stabilize_stream (stabilize "
-            "without --overlap)")
+            "without --overlap), the in-memory clip-batch driver "
+            "(drive_chunked_batch_lag) and the serving engine's whole "
+            "uploads (BatchStabilizer without segment carries)")
 
 
 def initial_state(device="cpu") -> torch.Tensor:
     """Fresh smoothing state for the start of a stream: D = P − S = 0."""
     return torch.zeros((STATE_DIM,), dtype=torch.float32, device=device)
+
+
+def thread_batch_state(fn4, n_clips: int, device, init_states=None):
+    """Adapt a 4-argument batched smoothed step ``fn4(model, frames, halos,
+    states)`` to the 3-argument contract of the clip-batch drive loops by
+    carrying the per-clip (B, STATE_DIM) states in a closure.
+
+    The loops call ``fn(model, frames, halos)`` strictly in chunk order, so
+    the closure is exact. States start fresh, or from ``init_states`` (a
+    mid-stream carry); the offsets stay the third output, and the final
+    states are read with ``fn.states()``.
+    """
+    if init_states is not None:
+        states = torch.as_tensor(np.asarray(init_states, np.float32)
+                                 ).to(device)
+    else:
+        states = torch.zeros((n_clips, STATE_DIM), dtype=torch.float32,
+                             device=device)
+    box = [states]
+
+    def fn(model, frames, halos):
+        out, new_halos, new_states, offs = fn4(model, frames, halos, box[0])
+        box[0] = new_states
+        return out, new_halos, offs
+
+    fn.states = lambda: box[0]
+    return fn
 
 
 # --- shape-only tables (numpy, as the JAX package computes them) -----------
@@ -208,8 +241,9 @@ def _phase_shifts_px(luma: torch.Tensor
     """Per-pair sub-pixel shifts in pixels from phase correlation, and a
     per-pair confidence.
 
-    ``luma``: (K, ph, pw) f32. Returns ``(shifts (K-1, 2), conf (K-1,))``,
-    shifts with last dim (Δx, Δy) such that f_t(p) = f_{t-1}(p + Δ).
+    ``luma``: (..., K, ph, pw) f32, any leading clip axes. Returns
+    ``(shifts (..., K-1, 2), conf (..., K-1))``, shifts with last dim
+    (Δx, Δy) such that f_t(p) = f_{t-1}(p + Δ); pairs never span two clips.
     ``conf`` is the peak-to-second-peak ratio of the correlation surface,
     the second peak taken outside a ±3-px circular box around the first.
 
@@ -219,14 +253,17 @@ def _phase_shifts_px(luma: torch.Tensor
     (complex64 throughout), then by a parabola through the best sample and
     its neighbours.
     """
-    k, ph, pw = luma.shape
+    ph, pw = luma.shape[-2:]
     dev = luma.device
     f = torch.fft.fft2(luma * _on(dev, "hann2d", ph, pw))
-    cross = f[1:] * torch.conj(f[:-1])
-    cross = cross / (torch.abs(cross) + 1e-12)               # (K-1, ph, pw)
+    cross = f[..., 1:, :, :] * torch.conj(f[..., :-1, :, :])
+    lead = cross.shape[:-2]                                  # (..., K-1)
+    cross = cross.reshape(-1, ph, pw)
+    cross = cross / (torch.abs(cross) + 1e-12)               # (P, ph, pw)
     r = torch.fft.ifft2(cross).real
+    n_pairs = cross.shape[0]
 
-    flat = r.reshape(k - 1, ph * pw)
+    flat = r.reshape(n_pairs, ph * pw)
     peak, idx = torch.max(flat, dim=-1)
     iy = torch.div(idx, pw, rounding_mode="floor")
     ix = idx - iy * pw
@@ -235,7 +272,7 @@ def _phase_shifts_px(luma: torch.Tensor
     ddx = torch.remainder(_on(dev, "arange", pw)[None, :] - ix[:, None]
                           + pw // 2, pw) - pw // 2
     excl = ((torch.abs(ddy) <= 3)[:, :, None]
-            & (torch.abs(ddx) <= 3)[:, None, :])             # (K-1, ph, pw)
+            & (torch.abs(ddx) <= 3)[:, None, :])             # (P, ph, pw)
     second = torch.amax(r.masked_fill(excl, -math.inf), dim=(1, 2))
     conf = peak / torch.clamp(second, min=1e-9)
     # Unwrap the circular peak index to a signed integer shift.
@@ -246,12 +283,12 @@ def _phase_shifts_px(luma: torch.Tensor
     fy = _on(dev, "fftfreq", ph)
     fx = _on(dev, "fftfreq", pw)
     ey = torch.exp(2j * math.pi * (p0y[:, None] + o[None, :])[:, :, None]
-                   * fy[None, None, :])                      # (K-1, 25, ph)
+                   * fy[None, None, :])                      # (P, 25, ph)
     ex = torch.exp(2j * math.pi * fx[None, :, None]
-                   * (p0x[:, None] + o[None, :])[:, None, :])  # (K-1, pw, 25)
-    up = torch.bmm(torch.bmm(ey, cross), ex).real            # (K-1, 25, 25)
+                   * (p0x[:, None] + o[None, :])[:, None, :])  # (P, pw, 25)
+    up = torch.bmm(torch.bmm(ey, cross), ex).real            # (P, 25, 25)
 
-    upf = up.reshape(k - 1, N_UP * N_UP)
+    upf = up.reshape(n_pairs, N_UP * N_UP)
     uidx = torch.argmax(upf, dim=-1)
     uy = torch.div(uidx, N_UP, rounding_mode="floor")
     ux = uidx - uy * N_UP
@@ -267,23 +304,24 @@ def _phase_shifts_px(luma: torch.Tensor
     sx = _parabolic(at(0, -1), r0, at(0, 1)) * step
     # The correlation peak sits at −Δ.
     shifts = torch.stack([-(p0x + o[ux] + sx), -(p0y + o[uy] + sy)], dim=-1)
-    return shifts, conf
+    return shifts.reshape(*lead, 2), conf.reshape(lead)
 
 
 def measure_shifts(seq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-step camera translation deltas from consecutive frame pairs.
 
-    ``seq``: (K, mh, mw, C) f32 model-resolution frames centred at 0.
-    Returns ``(deltas (K-1, 2), conf (K-1,))``: deltas in normalized grid
+    ``seq``: (..., K, mh, mw, C) f32 model-resolution frames centred at 0,
+    any leading clip axes. Returns ``(deltas (..., K-1, 2), conf
+    (..., K-1))``: deltas in normalized grid
     units (align_corners convention, last dim (x, y)), delta[k] =
     a_{k+1} − a_k where frame i is the scene through a camera translated
     by a_i; conf is the full-frame measurement confidence.
     """
-    _, mh, mw, _ = seq.shape
-    luma = seq.to(torch.float32).mean(dim=-1)              # (K, mh, mw)
+    mh, mw = seq.shape[-3:-1]
+    luma = seq.to(torch.float32).mean(dim=-1)              # (..., K, mh, mw)
     d, conf = _phase_shifts_px(luma)
-    scale = torch.stack([d[:, 0] * (2.0 / max(mw - 1, 1)),
-                         d[:, 1] * (2.0 / max(mh - 1, 1))], dim=-1)
+    scale = torch.stack([d[..., 0] * (2.0 / max(mw - 1, 1)),
+                         d[..., 1] * (2.0 / max(mh - 1, 1))], dim=-1)
     return scale, conf
 
 
@@ -298,36 +336,37 @@ def measure_motion(seq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         δθ ≈ ((dyR − dyL)/Δx_lr + (dxT − dxB)/Δy_tb) / 2
         δs ≈ ((dxR − dxL)/Δx_lr + (dyB − dyT)/Δy_tb) / 2
     """
-    _, mh, mw, _ = seq.shape
+    mh, mw = seq.shape[-3:-1]
     luma = seq.to(torch.float32).mean(dim=-1)
-    txy, conf = measure_shifts(seq)                        # (K-1, 2)
+    txy, conf = measure_shifts(seq)                        # (..., K-1, 2)
 
     half_w, half_h = mw // 2, mh // 2
-    d_l, _ = _phase_shifts_px(luma[:, :, :half_w])
-    d_r, _ = _phase_shifts_px(luma[:, :, mw - half_w:])
-    d_t, _ = _phase_shifts_px(luma[:, :half_h, :])
-    d_b, _ = _phase_shifts_px(luma[:, mh - half_h:, :])
+    d_l, _ = _phase_shifts_px(luma[..., :half_w])
+    d_r, _ = _phase_shifts_px(luma[..., mw - half_w:])
+    d_t, _ = _phase_shifts_px(luma[..., :half_h, :])
+    d_b, _ = _phase_shifts_px(luma[..., mh - half_h:, :])
 
     # Half-centre separations in normalized units.
     sep_x = half_w * 2.0 / max(mw - 1, 1)      # left ↔ right centres
     sep_y = half_h * 2.0 / max(mh - 1, 1)      # top ↔ bottom centres
-    dy_lr = (d_r[:, 1] - d_l[:, 1]) * (2.0 / max(mh - 1, 1))
-    dx_tb = (d_t[:, 0] - d_b[:, 0]) * (2.0 / max(mw - 1, 1))
+    dy_lr = (d_r[..., 1] - d_l[..., 1]) * (2.0 / max(mh - 1, 1))
+    dx_tb = (d_t[..., 0] - d_b[..., 0]) * (2.0 / max(mw - 1, 1))
     dtheta = 0.5 * (dy_lr / sep_x + dx_tb / sep_y)
-    dx_lr = (d_r[:, 0] - d_l[:, 0]) * (2.0 / max(mw - 1, 1))
-    dy_tb = (d_b[:, 1] - d_t[:, 1]) * (2.0 / max(mh - 1, 1))
+    dx_lr = (d_r[..., 0] - d_l[..., 0]) * (2.0 / max(mw - 1, 1))
+    dy_tb = (d_b[..., 1] - d_t[..., 1]) * (2.0 / max(mh - 1, 1))
     dscale = 0.5 * (dx_lr / sep_x + dy_tb / sep_y)
-    return torch.cat([txy, dtheta[:, None], dscale[:, None]], dim=-1), conf
+    return torch.cat([txy, dtheta[..., None], dscale[..., None]],
+                     dim=-1), conf
 
 
 def measure(cfg: StabilizeConfig, seq: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-pair (K-1, 4) deltas and confidence for the config's enabled
-    components; a disabled component's deltas are zero."""
+    """Per-pair (..., K-1, 4) deltas and confidence for the config's
+    enabled components; a disabled component's deltas are zero."""
     want_rot = cfg.path_smooth_rotation
     want_scale = cfg.path_smooth_scale
     if want_rot or want_scale:
-        deltas, conf = measure_motion(seq)             # (K-1, 4)
+        deltas, conf = measure_motion(seq)             # (..., K-1, 4)
         deltas = deltas * _on(seq.device, "component_mask", want_rot,
                               want_scale)
     else:
@@ -338,14 +377,25 @@ def measure(cfg: StabilizeConfig, seq: torch.Tensor
 
 # --- correction ----------------------------------------------------------------
 
+def _weighted_sum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Σ_m x[..., t, m, c]·w[m] → (..., t, c), one clip at a time and, on
+    the card, in calls of CHUNK_GROUP frames: a contraction sums in an
+    order that depends on its size, and a frame's output must depend
+    neither on the clips batched with it nor on the chunk size."""
+    if x.dim() == 3:
+        return in_groups(lambda v: torch.einsum("tmc,m->tc", v, w), x,
+                         CHUNK_GROUP)
+    return torch.stack([_weighted_sum(xi, w) for xi in x])
+
+
 def _window_rel(deltas: torch.Tensor, t: int, n: int, shift: int
                 ) -> torch.Tensor:
     """P_g − Ā_g for each of ``t`` frames: the weighted sum (weights
-    (1..n−1)/n) of deltas[i + shift .. i + shift + n − 2]."""
+    (1..n−1)/n) of deltas[..., i + shift .. i + shift + n − 2, :]."""
     dev = deltas.device
     idx = _on(dev, "window_index", t, n, shift)            # (t, n − 1)
     w = _on(dev, "window_weights", n)                      # (n − 1,)
-    return torch.einsum("tnc,n->tc", deltas[idx], w)
+    return _weighted_sum(deltas[..., idx, :], w)
 
 
 def smoothed_corrections(cfg: StabilizeConfig, deltas: torch.Tensor,
@@ -356,41 +406,44 @@ def smoothed_corrections(cfg: StabilizeConfig, deltas: torch.Tensor,
 
     Args:
       cfg: pipeline config (path_smooth > 0).
-      deltas: (t + window − 2, C) inter-frame deltas over the chunk's
-        model-resolution sequence (halo + current frames).
+      deltas: (..., t + window − 2, C) inter-frame deltas over the chunk's
+        model-resolution sequence (halo + current frames), any leading
+        clip axes.
       t: output frames in the chunk.
-      state: (C,) f32 carried D = P − S from the previous chunk.
-      cuts: optional (t + window − 2,) bool aligned with ``deltas``: a
+      state: (..., C) f32 carried D = P − S from the previous chunk.
+      cuts: optional (..., t + window − 2) bool aligned with ``deltas``: a
         detected scene cut at that transition resets the EMA (D := rel,
         so e = 0 at the cut frame).
 
-    Returns (e (t, C) f32, new_state (C,)). With α = 2/(L+1):
+    Returns (e (..., t, C) f32, new_state (..., C)). With α = 2/(L+1):
 
       D_g = (1−α)(D_{g−1} + δ_g);  e_g = clamp((P_g − Ā_g) − D_g);
       D_g := (P_g − Ā_g) − e_g   (anti-windup)
 
-    A loop of small tensor operations over the t frames; nothing is read
+    A loop of small elementwise tensor operations over the t frames (so
+    each clip's values do not depend on its co-travellers); nothing is read
     back to the host.
     """
     n = cfg.model.window
     one_minus_alpha = float(_F32(1.0) - _F32(2.0 / (cfg.path_smooth + 1.0)))
     clamp = float(_F32(cfg.path_smooth_max))
     deltas = deltas.to(torch.float32)
-    rel = _window_rel(deltas, t, n, 0)                     # (t, C)
+    rel = _window_rel(deltas, t, n, 0)                     # (..., t, C)
     # δ_g for output frame i is deltas[i + n − 2]: the halo → first-frame
     # transition for i = 0, so each global delta is consumed once.
-    step_deltas = deltas[n - 2:n - 2 + t]
-    step_cuts = None if cuts is None else cuts[n - 2:n - 2 + t]
+    step_deltas = deltas[..., n - 2:n - 2 + t, :]
+    step_cuts = None if cuts is None else cuts[..., n - 2:n - 2 + t, None]
     d = state.to(torch.float32)
     es = []
     for i in range(t):
-        d = one_minus_alpha * (d + step_deltas[i])
+        d = one_minus_alpha * (d + step_deltas[..., i, :])
         if step_cuts is not None:
-            d = torch.where(step_cuts[i], rel[i], d)    # restart (e = 0)
-        e = torch.clamp(rel[i] - d, -clamp, clamp)
-        d = rel[i] - e                  # anti-windup: absorb the clamp
+            # restart (e = 0)
+            d = torch.where(step_cuts[..., i, :], rel[..., i, :], d)
+        e = torch.clamp(rel[..., i, :] - d, -clamp, clamp)
+        d = rel[..., i, :] - e          # anti-windup: absorb the clamp
         es.append(e)
-    return torch.stack(es), d
+    return torch.stack(es, dim=-2), d
 
 
 def corrections_from_measured(cfg: StabilizeConfig, deltas: torch.Tensor,
@@ -403,7 +456,7 @@ def corrections_from_measured(cfg: StabilizeConfig, deltas: torch.Tensor,
         # A pair whose correlation peak is not clearly dominant (scene cut,
         # flat stretch, occlusion) contributes no delta.
         ok = conf >= float(_F32(cfg.path_smooth_conf))
-        deltas = deltas * ok[:, None].to(deltas.dtype)
+        deltas = deltas * ok[..., None].to(deltas.dtype)
         if cfg.path_smooth_cut > 0:
             cuts = conf < float(_F32(cfg.path_smooth_cut))
     return smoothed_corrections(cfg, deltas, t, state, cuts=cuts)
@@ -411,33 +464,33 @@ def corrections_from_measured(cfg: StabilizeConfig, deltas: torch.Tensor,
 
 def apply_corrections(cfg: StabilizeConfig, offsets: torch.Tensor,
                       e: torch.Tensor) -> torch.Tensor:
-    """Add the per-frame correction fields to the coarse offsets: the
-    translation as a constant, rotation as e_θ·(−Y, X) and scale as
-    e_s·(X, Y) at the control points — linear fields, exact under the
-    bilinear upsample."""
-    _, gh, gw, _ = offsets.shape
-    out = offsets + e[:, None, None, :2].to(offsets.dtype)
+    """Add the per-frame correction fields e (..., C) to the coarse
+    offsets (..., gh, gw, 2): the translation as a constant, rotation as
+    e_θ·(−Y, X) and scale as e_s·(X, Y) at the control points — linear
+    fields, exact under the bilinear upsample."""
+    gh, gw = offsets.shape[-3:-1]
+    out = offsets + e[..., None, None, :2].to(offsets.dtype)
     g = _on(offsets.device, "identity_grid", gh, gw)        # (gh, gw, 2)
     if cfg.path_smooth_rotation:
         rot = torch.stack([-g[..., 1], g[..., 0]], dim=-1)
-        out = out + (e[:, 2][:, None, None, None]
-                     * rot[None]).to(offsets.dtype)
+        out = out + (e[..., 2, None, None, None]
+                     * rot).to(offsets.dtype)
     if cfg.path_smooth_scale:
-        out = out + (e[:, 3][:, None, None, None]
-                     * g[None]).to(offsets.dtype)
+        out = out + (e[..., 3, None, None, None]
+                     * g).to(offsets.dtype)
     return out
 
 
 def apply_path_smoothing(cfg: StabilizeConfig, seq: torch.Tensor,
                          offsets: torch.Tensor, state: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """offsets (T, gh, gw, 2) → smoothed offsets, and the new state.
+    """offsets (..., T, gh, gw, 2) → smoothed offsets, and the new state.
 
     ``cfg.strength`` scales the CNN's window-relative correction only; the
     sway correction e = S − Ā is always applied in full (the clamp and the
     auto-crop margin assume |e| ≤ path_smooth_max).
     """
-    t = offsets.shape[0]
+    t = offsets.shape[-4]
     deltas, conf = measure(cfg, seq)
     e, new_state = corrections_from_measured(cfg, deltas, conf, t, state)
     return apply_corrections(cfg, offsets, e), new_state
@@ -454,10 +507,11 @@ def lag_carry_len(cfg: StabilizeConfig) -> int:
 
 def lag_corrections(cfg: StabilizeConfig, deltas_ext: torch.Tensor,
                     conf_ext: torch.Tensor, t: int) -> torch.Tensor:
-    """Per-frame corrections e (t, C) of the lag mode.
+    """Per-frame corrections e (..., t, C) of the lag mode.
 
     ``deltas_ext``/``conf_ext``: the extended measurement window (t + K +
-    D − 1 entries) = carried entries ++ this chunk's; emitted frame i's
+    D − 1 entries along the axis before C, any leading clip axes) =
+    carried entries ++ this chunk's; emitted frame i's
     transition entries sit at [i, i + K + D − 1] and its window-mean
     entries at [i + K − window + 1, i + K − 1]. S_g − P_g = Σ_k c_k·δ_{g+k}
     with the fixed taps c, so e_g = clamp(rel_g + Σ c·δ).
@@ -469,10 +523,10 @@ def lag_corrections(cfg: StabilizeConfig, deltas_ext: torch.Tensor,
     deltas_ext = deltas_ext.to(torch.float32)
     if cfg.path_smooth_conf > 0:
         ok = conf_ext >= float(_F32(cfg.path_smooth_conf))
-        deltas_ext = deltas_ext * ok[:, None].to(deltas_ext.dtype)
+        deltas_ext = deltas_ext * ok[..., None].to(deltas_ext.dtype)
     dev = deltas_ext.device
     rel = _window_rel(deltas_ext, t, n, k_past - n + 1)
     f_idx = _on(dev, "window_index", t, len(taps) + 1, 0)  # (t, len(taps))
-    fir = torch.einsum("tmc,m->tc", deltas_ext[f_idx],
-                       _on(dev, "lag_taps", *key))
+    fir = _weighted_sum(deltas_ext[..., f_idx, :],
+                        _on(dev, "lag_taps", *key))
     return torch.clamp(rel + fir, -clamp, clamp)

@@ -25,6 +25,7 @@ from dvsg_tpu_torch.config import StabilizeConfig
 from dvsg_tpu_torch.models import motion_cnn
 from dvsg_tpu_torch.ops import resize as resize_ops
 from dvsg_tpu_torch.ops import warp as warp_ops
+from dvsg_tpu_torch.ops.grouped import CHUNK_GROUP, ENCODE_GROUP, in_groups
 from dvsg_tpu_torch.pipeline import pathsmooth
 from dvsg_tpu_torch.utils.metrics import StageTimer
 
@@ -39,34 +40,67 @@ def quantize_frames(frames: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(frames * 255.0), 0, 255).to(torch.uint8)
 
 
+def downscale_frames(cfg: StabilizeConfig, frames_u8: torch.Tensor
+                     ) -> torch.Tensor:
+    """uint8 (..., T, H, W, C) → the model's f32 (..., T, mh, mw, C) input
+    (``resize.downscale_norm``, in fixed-size calls on the card:
+    ops/grouped.py)."""
+    mh, mw = cfg.model.model_size
+    flat = frames_u8.reshape(-1, *frames_u8.shape[-3:])
+    small = in_groups(lambda f: resize_ops.downscale_norm(f, mh, mw), flat,
+                      CHUNK_GROUP)
+    return small.reshape(*frames_u8.shape[:-3], *small.shape[1:])
+
+
 def predict_chunk_offsets(cfg: StabilizeConfig,
                           model: motion_cnn.MotionEstimator,
                           seq: torch.Tensor, t: int) -> torch.Tensor:
-    """Coarse offsets (t, gh, gw, 2) for ``t`` output frames from the
-    (t + window - 1)-frame model-resolution sequence (t+N-1, mh, mw, C).
+    """Coarse offsets (..., t, gh, gw, 2) for ``t`` output frames from the
+    (t + window - 1)-frame model-resolution sequence (..., t+N-1, mh, mw,
+    C); a leading clip axis is folded into the frame axis.
 
     Sliding windows share window-1 frames, so each unique frame is encoded
-    once and feature windows are assembled from the cache.
+    once and feature windows are assembled from the cache, per clip. The
+    encoder and the head run in fixed-size calls on the card
+    (ops/grouped.py).
     """
     n = cfg.model.window
-    feats = motion_cnn.encode_frames(model, seq)             # (t+n-1, ...)
+    lead = seq.shape[:-4]
+    feats = in_groups(lambda f: motion_cnn.encode_frames(model, f),
+                      seq.reshape(-1, *seq.shape[-3:]), ENCODE_GROUP)
+    feats = feats.reshape(*lead, seq.shape[-4], *feats.shape[1:])
     idx = (torch.arange(t, device=seq.device)[:, None]
            + torch.arange(n, device=seq.device)[None, :])
-    offsets = motion_cnn.offsets_from_feature_windows(model, feats[idx])
+    windows = feats[..., idx, :, :, :]                # (..., t, n, gh, gw, F)
+    offsets = in_groups(
+        lambda w: motion_cnn.offsets_from_feature_windows(model, w),
+        windows.reshape(-1, *windows.shape[-4:]), CHUNK_GROUP)
+    offsets = offsets.reshape(*lead, t, *offsets.shape[1:])
     if cfg.strength != 1.0:
         # Partial stabilization: scale the predicted correction.
         offsets = offsets * cfg.strength
     return offsets
 
 
+def _warp(cfg: StabilizeConfig, frames_u8: torch.Tensor,
+          offsets: torch.Tensor) -> torch.Tensor:
+    """The fused warp over every frame of (..., T, H, W, C): one launch of
+    the offsets kernel, whatever the leading clip axes."""
+    out = warp_ops.warp_quantize_batch(
+        frames_u8.reshape(-1, *frames_u8.shape[-3:]),
+        offsets=offsets.reshape(-1, *offsets.shape[-3:]),
+        border_crop=cfg.border_crop)
+    return out.reshape(frames_u8.shape)
+
+
 def _chunk_body(cfg: StabilizeConfig, model: motion_cnn.MotionEstimator,
                 frames_u8: torch.Tensor, halo: torch.Tensor,
                 smooth_state: Optional[torch.Tensor]):
-    """Shared body of the plain and the path-smoothed chunk steps."""
-    t = frames_u8.shape[0]
-    mh, mw = cfg.model.model_size
-    small = resize_ops.downscale_norm(frames_u8, mh, mw)
-    seq = torch.cat([halo, small], dim=0)        # (T+N-1, mh, mw, C)
+    """Shared body of the plain and the path-smoothed chunk steps, with or
+    without a leading clip axis."""
+    t = frames_u8.shape[-4]
+    small = downscale_frames(cfg, frames_u8)
+    seq = torch.cat([halo, small], dim=-4)       # (..., T+N-1, mh, mw, C)
     offsets = predict_chunk_offsets(cfg, model, seq, t)
     new_state = smooth_state
     if smooth_state is not None:
@@ -74,9 +108,8 @@ def _chunk_body(cfg: StabilizeConfig, model: motion_cnn.MotionEstimator,
         # warp sees the final offsets.
         offsets, new_state = pathsmooth.apply_path_smoothing(
             cfg, seq, offsets, smooth_state)
-    out_u8 = warp_ops.warp_quantize_batch(
-        frames_u8, offsets=offsets, border_crop=cfg.border_crop)
-    return out_u8, seq[t:], new_state, offsets
+    out_u8 = _warp(cfg, frames_u8, offsets)
+    return out_u8, seq[..., t:, :, :, :], new_state, offsets
 
 
 def stabilize_chunk_impl(cfg: StabilizeConfig,
@@ -89,11 +122,14 @@ def stabilize_chunk_impl(cfg: StabilizeConfig,
     Args:
       cfg: pipeline config.
       model: the motion CNN, on the chunk's device.
-      frames_u8: (T, H, W, C) uint8 RGB chunk.
-      halo: (window-1, mh, mw, C) f32 model-res history, centered at 0.
+      frames_u8: (T, H, W, C) uint8 RGB chunk, or (B, T, H, W, C) for a
+        batch of clips (parallel/dp.py).
+      halo: (window-1, mh, mw, C) f32 model-res history, centered at 0
+        (with the same leading clip axis).
 
     Returns:
-      (stabilized_u8 (T, H, W, C), new_halo, offsets (T, gh, gw, 2)).
+      (stabilized_u8 (T, H, W, C), new_halo, offsets (T, gh, gw, 2)), each
+      with the leading clip axis of the inputs.
     """
     out_u8, new_halo, _, offsets = _chunk_body(cfg, model, frames_u8, halo,
                                                None)
@@ -105,9 +141,10 @@ def stabilize_chunk_smooth_impl(cfg: StabilizeConfig,
                                 frames_u8: torch.Tensor, halo: torch.Tensor,
                                 smooth_state: torch.Tensor):
     """Path-smoothed device step (cfg.path_smooth > 0): the contract of
-    ``stabilize_chunk_impl`` plus a carried (4,) f32 smoothing state.
-    Returns (stabilized_u8, new_halo, new_smooth_state, offsets), the
-    offsets being the applied (smoothed) ones."""
+    ``stabilize_chunk_impl`` plus a carried (4,) f32 smoothing state ((B, 4)
+    for a batch of clips). Returns (stabilized_u8, new_halo,
+    new_smooth_state, offsets), the offsets being the applied (smoothed)
+    ones."""
     return _chunk_body(cfg, model, frames_u8, halo, smooth_state)
 
 
@@ -126,34 +163,37 @@ def stabilize_chunk_lag_impl(cfg: StabilizeConfig,
     chunks: the model-res halo, the D delayed raw frames, their D offset
     grids, and the trailing measurement window (deltas + confidence).
     Returns (emitted_u8 (T, H, W, C), new_halo, new_carry_frames,
-    new_carry_offsets, new_carry_d, new_carry_c, emitted_offsets).
+    new_carry_offsets, new_carry_d, new_carry_c, emitted_offsets); inputs
+    and outputs may carry a leading clip axis.
 
     The caller drops the first D emitted frames of a stream and feeds
     replicate-pad chunks after the end until the tail drains; a pad
     transition measures as an exact zero delta.
     """
     d_lag = cfg.path_smooth_lag
-    t = frames_u8.shape[0]
-    mh, mw = cfg.model.model_size
-    small = resize_ops.downscale_norm(frames_u8, mh, mw)
-    seq = torch.cat([halo, small], dim=0)
+    t = frames_u8.shape[-4]
+    small = downscale_frames(cfg, frames_u8)
+    seq = torch.cat([halo, small], dim=-4)
     offsets_cur = predict_chunk_offsets(cfg, model, seq, t)
 
     deltas_cur, conf_cur = pathsmooth.measure(cfg, seq)
-    deltas_ext = torch.cat([carry_d, deltas_cur], dim=0)
-    conf_ext = torch.cat([carry_c, conf_cur], dim=0)
+    deltas_ext = torch.cat([carry_d, deltas_cur], dim=-2)
+    conf_ext = torch.cat([carry_c, conf_cur], dim=-1)
     e = pathsmooth.lag_corrections(cfg, deltas_ext, conf_ext, t)
 
-    emit_frames = torch.cat([carry_frames, frames_u8[:t - d_lag]], dim=0)
-    emit_offsets = torch.cat([carry_offsets, offsets_cur[:t - d_lag]],
-                             dim=0)
+    emit_frames = torch.cat(
+        [carry_frames, frames_u8[..., :t - d_lag, :, :, :]], dim=-4)
+    emit_offsets = torch.cat([carry_offsets,
+                              offsets_cur[..., :t - d_lag, :, :, :]], dim=-4)
     emit_offsets = pathsmooth.apply_corrections(cfg, emit_offsets, e)
-    out_u8 = warp_ops.warp_quantize_batch(
-        emit_frames, offsets=emit_offsets, border_crop=cfg.border_crop)
+    out_u8 = _warp(cfg, emit_frames, emit_offsets)
 
-    c_len = carry_d.shape[0]
-    return (out_u8, seq[t:], frames_u8[t - d_lag:], offsets_cur[t - d_lag:],
-            deltas_ext[t:t + c_len], conf_ext[t:t + c_len], emit_offsets)
+    c_len = carry_d.shape[-2]
+    return (out_u8, seq[..., t:, :, :, :],
+            frames_u8[..., t - d_lag:, :, :, :],
+            offsets_cur[..., t - d_lag:, :, :, :],
+            deltas_ext[..., t:t + c_len, :], conf_ext[..., t:t + c_len],
+            emit_offsets)
 
 
 def put_frames(host_frames: np.ndarray, device) -> torch.Tensor:
@@ -195,6 +235,167 @@ def build_model(mcfg, params: dict, device: torch.device
     model = motion_cnn.MotionEstimator(mcfg)
     model.load_state_dict(params)
     return model.to(device).eval()
+
+
+class BehindFetch:
+    """Device → host copies of chunk outputs that run behind the next
+    chunk's compute (the clip-batch drivers' one-chunk-behind fetch).
+
+    ``start(out)`` right after a chunk is dispatched queues the copy of
+    ``out`` on a side stream once the chunk is done, into pinned memory;
+    ``finish(handle)`` after the next chunk is dispatched waits for that
+    copy alone. On the CPU both are plain copies.
+    """
+
+    def __init__(self, device: torch.device):
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    def start(self, out: torch.Tensor):
+        if self.stream is None:
+            return out
+        ready = torch.cuda.current_stream(out.device).record_event()
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(ready)
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            out.record_stream(self.stream)
+            done = self.stream.record_event()
+        return host, done
+
+    def finish(self, handle) -> np.ndarray:
+        if self.stream is None:
+            return fetch_frames(handle)
+        host, done = handle
+        done.synchronize()
+        return host.numpy()
+
+
+def _model_device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _padded_chunks(clips_u8: np.ndarray, t_chunk: int):
+    """(start, (B, T, H, W, C) chunk, valid frames) over a clip batch; the
+    last partial chunk is padded by replicating each clip's final frame."""
+    total = clips_u8.shape[1]
+    for start in range(0, total, t_chunk):
+        chunk = clips_u8[:, start:start + t_chunk]
+        n_valid = chunk.shape[1]
+        if n_valid < t_chunk:
+            pad = np.repeat(chunk[:, -1:], t_chunk - n_valid, axis=1)
+            chunk = np.concatenate([chunk, pad], axis=1)
+        yield chunk, n_valid
+
+
+@torch.inference_mode()
+def drive_chunked_batch(fn, model: motion_cnn.MotionEstimator,
+                        cfg: StabilizeConfig, clips_u8: np.ndarray,
+                        fetch_clips: Optional[int] = None,
+                        coverage_out: Optional[list] = None,
+                        initial_halos=None, return_halos: bool = False):
+    """Drive a batched chunk step ``fn`` over an in-memory clip batch.
+
+    The chunk/pad/dispatch/fetch loop shared by the clip-batch surfaces
+    (pipeline/batching.py). ``fn(model, frames (B, T, ...), halos)`` returns
+    ``(out, new_halos, ...)`` (parallel/dp.py; ``pathsmooth.
+    thread_batch_state`` for the smoothed step). Chunk k+1 is dispatched
+    before chunk k is fetched (``BehindFetch``), and only the first
+    ``fetch_clips`` clips are fetched: pow2 padding clips are computed,
+    never copied to the host.
+
+    ``coverage_out``: a list, extended to ``fetch_clips`` zeros: the CUDA
+    gather has no coverage band, so no chunk falls back to a slower path
+    (kept for the reporting surface).
+
+    ``initial_halos`` ((B, window-1, mh, mw, C) f32) seeds the input
+    history instead of the replicate-pad start (a mid-stream carry; the
+    caller then feeds chunk-aligned segments), and ``return_halos`` also
+    returns the final (B, ...) halos: ``(out, final_halos)``.
+
+    clips_u8 (B, T_total, H, W, C) uint8 → (fetch_clips, T_total, ...).
+    """
+    dev = _model_device(model)
+    b = clips_u8.shape[0]
+    k = b if fetch_clips is None else fetch_clips
+    if coverage_out is not None:
+        coverage_out.extend([0] * (k - len(coverage_out)))
+    if initial_halos is not None:
+        halos = torch.as_tensor(np.asarray(initial_halos, np.float32)
+                                ).to(dev)
+    else:
+        halos = torch.stack([initial_halo(cfg, clips_u8[i, 0], dev)
+                             for i in range(b)])
+    fetch = BehindFetch(dev)
+    outs, pending = [], None
+    for chunk, n_valid in _padded_chunks(clips_u8, cfg.chunk_frames):
+        res = fn(model, put_frames(chunk, dev), halos)
+        out, halos = res[0], res[1]
+        if pending is not None:
+            outs.append(fetch.finish(pending))
+        pending = fetch.start(out[:k, :n_valid])
+    outs.append(fetch.finish(pending))
+    result = np.concatenate(outs, axis=1)
+    if return_halos:
+        return result, halos
+    return result
+
+
+def init_lag_carries(cfg: StabilizeConfig, first_frames: np.ndarray,
+                     device) -> tuple:
+    """Fresh per-clip lag-mode carries for a (B, H, W, C) batch of first
+    frames: (frames (B, D, H, W, C) uint8, offsets (B, D, gh, gw, 2),
+    deltas (B, C_len, 4), confidence (B, C_len)), the batched counterpart of
+    ``Stabilizer._init_lag_carry``."""
+    d_lag = cfg.path_smooth_lag
+    gh, gw = cfg.model.grid_size
+    c_len = pathsmooth.lag_carry_len(cfg)
+    b = first_frames.shape[0]
+    first = put_frames(np.asarray(first_frames, np.uint8)[:, None], device)
+    return (first.repeat(1, d_lag, 1, 1, 1),
+            torch.zeros((b, d_lag, gh, gw, 2), device=device),
+            torch.zeros((b, c_len, pathsmooth.STATE_DIM), device=device),
+            torch.full((b, c_len), 1e6, device=device))
+
+
+@torch.inference_mode()
+def drive_chunked_batch_lag(fn, model: motion_cnn.MotionEstimator,
+                            cfg: StabilizeConfig, clips_u8: np.ndarray,
+                            fetch_clips: Optional[int] = None,
+                            coverage_out: Optional[list] = None):
+    """The lag-mode sibling of ``drive_chunked_batch``: emission is shifted
+    by D frames, so the loop runs D frames past the input (each clip padded
+    by replicating its own last frame, by index clipping) and trims the
+    emitted stream to [0, total): ``Stabilizer._stabilize_clip_lag``,
+    batched. ``fn(model, frames, halos, carries)`` returns ``(out,
+    new_halos, new_carries, offsets)`` (``dp._stabilize_chunk_batch_lag``).
+    Whole clips only: the carries hold D raw frames, which segmented
+    callers would have to thread (the serving engine refuses lag carries).
+    """
+    dev = _model_device(model)
+    b, total = clips_u8.shape[:2]
+    k = b if fetch_clips is None else fetch_clips
+    t_chunk = cfg.chunk_frames
+    d_lag = cfg.path_smooth_lag
+    if coverage_out is not None:
+        coverage_out.extend([0] * (k - len(coverage_out)))
+    halos = torch.stack([initial_halo(cfg, clips_u8[i, 0], dev)
+                         for i in range(b)])
+    carries = init_lag_carries(cfg, clips_u8[:, 0], dev)
+    fetch = BehindFetch(dev)
+    outs, pending = [], None
+    base = -d_lag               # global index of the next chunk's out[0]
+    for start in range(0, total + d_lag, t_chunk):
+        idx = np.clip(np.arange(start, start + t_chunk), 0, total - 1)
+        out, halos, carries, _ = fn(model, put_frames(clips_u8[:, idx], dev),
+                                    halos, carries)
+        if pending is not None:
+            outs.append(fetch.finish(pending))
+        pending = fetch.start(out[:k, max(0, -base):min(t_chunk,
+                                                       total - base)])
+        base += t_chunk
+    outs.append(fetch.finish(pending))
+    return np.concatenate([o for o in outs if o.shape[1]], axis=1)
 
 
 def _load_record(path: str) -> Optional[dict]:

@@ -1,0 +1,255 @@
+"""The port's CLI on the CPU: ``stabilize`` loading a training checkpoint
+directory, the reference's model, metrics and warp flags on ``stabilize``,
+the configs at the package root, and ``stabilize-batch`` (mirrors of
+tests/test_io_cli.py and tests/test_multiclip.py)."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import dvsg_tpu_torch
+from dvsg_tpu_torch import cli, config
+from dvsg_tpu_torch.config import ModelConfig, StabilizeConfig
+from dvsg_tpu_torch.models import motion_cnn
+from dvsg_tpu_torch.pipeline import autocrop
+from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
+from dvsg_tpu_torch.train import synthetic
+from dvsg_tpu_torch.utils import checkpoint as ckpt
+from dvsg_tpu_torch.utils import video_io
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FAST = os.path.join(ROOT, "checkpoints", "flagship_fast.npz")
+TINY = ["--window", "3", "--model-size", "32", "32", "--grid-size", "8",
+        "8"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _clip(n, key=3, h=48, w=64):
+    return synthetic.synthetic_clip_u8(torch.Generator().manual_seed(key),
+                                       n, h, w)[0].numpy()
+
+
+def _write_dir(path, frames):
+    with video_io.VideoWriter(str(path), frames.shape[2],
+                              frames.shape[1]) as w:
+        w.write_batch(frames)
+    return str(path)
+
+
+def _read_dir(path):
+    with video_io.VideoReader(str(path)) as r:
+        return r.read_batch(1000)
+
+
+def _stab(params, mcfg, **kw):
+    return Stabilizer(StabilizeConfig(model=mcfg, chunk_frames=4, **kw),
+                      params, device="cpu")
+
+
+def test_package_root_reexports_configs():
+    assert dvsg_tpu_torch.ModelConfig is config.ModelConfig
+    assert dvsg_tpu_torch.StabilizeConfig is config.StabilizeConfig
+    assert dvsg_tpu_torch.TrainConfig is config.TrainConfig
+
+
+def test_io_threads_field_matches_reference():
+    from dvsg_tpu.config import StabilizeConfig as JStabilizeConfig
+    assert StabilizeConfig().io_threads == JStabilizeConfig().io_threads == 4
+    cfg = config.stabilize_config_from_dict(
+        {"model": {"window": 3, "model_size": [32, 32],
+                   "grid_size": [8, 8]}, "io_threads": 2})
+    assert cfg.io_threads == 2
+
+
+def test_stabilize_loads_a_train_directory(tmp_path):
+    """A checkpoint directory written by ``train`` stabilizes as its
+    weights do in the library."""
+    ck = str(tmp_path / "ck")
+    assert cli.main(["train", "--checkpoint", ck, "--steps", "1",
+                     "--batch-size", "1", "--platform", "cpu", *TINY]) == 0
+    frames = _clip(6, h=32, w=40)
+    src = _write_dir(tmp_path / "in", frames)
+    assert cli.main(["stabilize", "--input", src, "--output",
+                     str(tmp_path / "out"), "--checkpoint", ck,
+                     "--chunk-frames", "4", "--platform", "cpu"]) == 0
+    params, mcfg, step = ckpt.load_checkpoint(ck)
+    assert step == 1
+    np.testing.assert_array_equal(_read_dir(tmp_path / "out"),
+                                  _stab(params, mcfg).stabilize_clip(frames))
+    assert cli.main(["stabilize", "--input", src, "--output",
+                     str(tmp_path / "o2"), "--checkpoint",
+                     str(tmp_path / "missing"), "--platform", "cpu"]) == 2
+
+
+def test_stabilize_model_flags_select_the_identity_model(tmp_path, capsys):
+    frames = _clip(6, h=32, w=40)
+    src = _write_dir(tmp_path / "in", frames)
+    assert cli.main(["stabilize", "--input", src, "--output",
+                     str(tmp_path / "out"), "--chunk-frames", "4",
+                     "--platform", "cpu", "--dtype", "float32",
+                     *TINY]) == 0
+    assert "untrained (identity) model" in capsys.readouterr().err
+    mcfg = ModelConfig(window=3, model_size=(32, 32), grid_size=(8, 8))
+    params = motion_cnn.init_params(mcfg, torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(_read_dir(tmp_path / "out"),
+                                  _stab(params, mcfg).stabilize_clip(frames))
+
+
+def test_stabilize_metrics_out_and_warp_impl_auto(tmp_path):
+    frames = _clip(6)
+    src = _write_dir(tmp_path / "in", frames)
+    metrics = str(tmp_path / "m.jsonl")
+    assert cli.main(["stabilize", "--input", src, "--output",
+                     str(tmp_path / "out"), "--chunk-frames", "4",
+                     "--platform", "cpu", "--warp-impl", "auto",
+                     "--metrics-out", metrics]) == 0
+    with open(metrics) as f:
+        rec = json.loads(f.readline())
+    assert {"kind", "frames", "wall_s", "fps", "width", "height", "device",
+            "stages", "coverage_fallback_chunks", "chunks"} <= set(rec)
+    assert (rec["kind"], rec["frames"], rec["width"], rec["height"],
+            rec["device"], rec["chunks"], rec["coverage_fallback_chunks"]) \
+        == ("stabilize", 6, 64, 48, "cpu", 2, 0)
+    assert {"decode", "compute", "encode"} <= set(rec["stages"])
+    params, mcfg = ckpt.load_npz(FAST)
+    np.testing.assert_array_equal(_read_dir(tmp_path / "out"),
+                                  _stab(params, mcfg).stabilize_clip(frames))
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--warp-impl", "lax"], "one warp route"),
+    (["--warp-impl", "pallas"], "one warp route"),
+    (["--dtype", "bfloat16"], "not ported yet"),
+    (["--checkpoint", FAST, "--preset", "fast"], "not both"),
+])
+@pytest.mark.parametrize("command", ["stabilize", "stabilize-batch"])
+def test_refused_flags_exit_2(tmp_path, capsys, command, extra, match):
+    io = (["--input", str(tmp_path), "--output", str(tmp_path / "o")]
+          if command == "stabilize" else
+          ["--inputs", str(tmp_path), "--outputs", str(tmp_path / "o")])
+    assert cli.main([command, *io, "--platform", "cpu", *extra]) == 2
+    assert match in capsys.readouterr().err
+    assert not os.path.exists(tmp_path / "o")
+
+
+def test_usage_names_every_command(capsys):
+    assert cli.main([]) == 2
+    err = capsys.readouterr().err
+    assert "stabilize-batch" in err and "eval" in err
+
+
+# --- stabilize-batch ---------------------------------------------------------
+
+def test_stabilize_batch_matches_library(tmp_path):
+    clips = [_clip(5, key=4), _clip(7, key=5)]
+    ins = [_write_dir(tmp_path / f"in{i}", c) for i, c in enumerate(clips)]
+    outs = [str(tmp_path / f"out{i}") for i in range(2)]
+    metrics = str(tmp_path / "m.jsonl")
+    assert cli.main(["stabilize-batch", "--inputs", *ins, "--outputs", *outs,
+                     "--chunk-frames", "4", "--platform", "cpu", "--no-mesh",
+                     "--path-smooth", "8", "--metrics-out", metrics]) == 0
+    params, mcfg = ckpt.load_npz(FAST)
+    for clip, out in zip(clips, outs):
+        np.testing.assert_array_equal(
+            _read_dir(out), _stab(params, mcfg, path_smooth=8)
+            .stabilize_clip(clip))
+    with open(metrics) as f:
+        rec = json.loads(f.readline())
+    assert (rec["kind"], rec["clips"], rec["frames"], rec["failed_clips"],
+            rec["coverage_fallback_chunks"]) \
+        == ("stabilize_batch", 2, 12, [], [0, 0])
+
+
+def test_stabilize_batch_shares_an_auto_crop(tmp_path, capsys):
+    clips = [_clip(6, key=6), _clip(4, key=7)]
+    ins = [_write_dir(tmp_path / f"in{i}", c) for i, c in enumerate(clips)]
+    outs = [str(tmp_path / f"out{i}") for i in range(2)]
+    assert cli.main(["stabilize-batch", "--inputs", *ins, "--outputs", *outs,
+                     "--chunk-frames", "4", "--platform", "cpu",
+                     "--border-crop", "auto"]) == 0
+    err = capsys.readouterr().err
+    assert "auto border-crop (shared over 2 clips): max |offset|" in err
+    params, mcfg = ckpt.load_npz(FAST)
+    cfg = StabilizeConfig(model=mcfg, chunk_frames=4)
+    crop, _ = autocrop.crop_for_max_offset(max(
+        autocrop.scan_clip_max_offset(cfg, params, c, device="cpu")
+        for c in clips))
+    assert f"-> crop {crop:.4f}" in err
+    for clip, out in zip(clips, outs):
+        np.testing.assert_array_equal(
+            _read_dir(out), _stab(params, mcfg, border_crop=crop)
+            .stabilize_clip(clip))
+
+
+def test_stabilize_batch_refuses_mixed_resolutions_before_writing(tmp_path):
+    ins = [_write_dir(tmp_path / "a", _clip(4, key=8)),
+           _write_dir(tmp_path / "b", _clip(4, key=9, h=32, w=64))]
+    outs = [str(tmp_path / "oa.avi"), str(tmp_path / "ob")]
+    assert cli.main(["stabilize-batch", "--inputs", *ins, "--outputs", *outs,
+                     "--platform", "cpu"]) == 2
+    assert not any(os.path.exists(o) for o in outs)
+    assert cli.main(["stabilize-batch", "--inputs", *ins, "--outputs",
+                     outs[0], "--platform", "cpu"]) == 2
+    assert cli.main(["stabilize-batch", "--inputs", ins[0], "--outputs",
+                     outs[0], "--platform", "cpu", "--path-smooth", "8",
+                     "--path-smooth-lag", "4"]) == 2
+    assert not any(os.path.exists(o) for o in outs)
+
+
+def test_stabilize_batch_exits_3_on_a_failed_clip(tmp_path, monkeypatch,
+                                                  capsys):
+    clips = [_clip(8, key=10), _clip(8, key=11)]
+    ins = [_write_dir(tmp_path / f"in{i}", c) for i, c in enumerate(clips)]
+    outs = [str(tmp_path / f"out{i}") for i in range(2)]
+    real = video_io.VideoReader
+
+    class Failing(real):
+        def read_batch(self, n, out=None):
+            if self.path == ins[1] and self._pos >= 4:
+                raise IOError("injected mid-stream decode failure")
+            return super().read_batch(n, out)
+
+    monkeypatch.setattr(video_io, "VideoReader", Failing)
+    assert cli.main(["stabilize-batch", "--inputs", *ins, "--outputs", *outs,
+                     "--chunk-frames", "4", "--platform", "cpu"]) == 3
+    assert f"FAILED clip {ins[1]} after 4 frames" in capsys.readouterr().err
+    params, mcfg = ckpt.load_npz(FAST)
+    np.testing.assert_array_equal(_read_dir(outs[0]),
+                                  _stab(params, mcfg).stabilize_clip(
+                                      clips[0]))
+    assert _read_dir(outs[1]).shape[0] == 4
+
+
+def test_stabilize_batch_closes_writers_on_device_failure(tmp_path,
+                                                          monkeypatch):
+    ins = [_write_dir(tmp_path / f"in{i}", _clip(4, key=12 + i))
+           for i in range(2)]
+    closed = []
+    real = video_io.VideoWriter
+
+    class Spy(real):
+        def close(self):
+            closed.append(self)
+            super().close()
+
+    def boom(*a, **k):
+        raise RuntimeError("injected device failure")
+
+    monkeypatch.setattr(video_io, "VideoWriter", Spy)
+    monkeypatch.setattr("dvsg_tpu_torch.pipeline.multiclip.stabilize_multi",
+                        boom)
+    with pytest.raises(RuntimeError, match="injected device failure"):
+        cli.main(["stabilize-batch", "--inputs", *ins, "--outputs",
+                  str(tmp_path / "o0"), str(tmp_path / "o1"),
+                  "--platform", "cpu"])
+    assert len(closed) == 2

@@ -357,6 +357,7 @@ def test_online_push_on_the_card_equals_clip(dev):
 class _Reader:
     def __init__(self, frames):
         self.frames, self.pos = frames, 0
+        self.height, self.width = frames.shape[1:3]
 
     def read_batch(self, n):
         out = self.frames[self.pos:self.pos + n]
@@ -387,3 +388,97 @@ def test_overlapped_stream_on_the_card_equals_sync(dev, depth):
         assert stabilize_stream_overlapped(stab, _Reader(frames), w) \
             == len(frames)
         np.testing.assert_array_equal(np.concatenate(w.chunks), want)
+
+
+# --- batch and serve on the card ----------------------------------------------
+
+def _fast_setup(n_clips=8, frames=24, h=96, w=160):
+    import os
+    from dvsg_tpu_torch.train import synthetic
+    from dvsg_tpu_torch.utils.checkpoint import load_npz
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    params, mcfg = load_npz(os.path.join(root, "checkpoints",
+                                         "flagship_fast.npz"))
+    clips = np.stack([synthetic.synthetic_clip_u8(
+        torch.Generator().manual_seed(20 + i), frames, h, w)[0].numpy()
+        for i in range(n_clips)])
+    return params, mcfg, clips
+
+
+BATCH_MODES = {"plain": {}, "causal": dict(path_smooth=32),
+               "lag": dict(path_smooth=32, path_smooth_lag=8)}
+
+
+@pytest.mark.parametrize("mode", list(BATCH_MODES))
+def test_batch_size_invariance_on_the_card(dev, mode):
+    """One clip in batches of 1, 2, 4 and 8 gives the single-clip bytes,
+    with one launch of the offsets kernel per batched chunk."""
+    from dvsg_tpu_torch.config import StabilizeConfig
+    from dvsg_tpu_torch.parallel import dp
+    from dvsg_tpu_torch.pipeline import pathsmooth
+    from dvsg_tpu_torch.pipeline import stabilize as st
+    params, mcfg, clips = _fast_setup()
+    cfg = StabilizeConfig(model=mcfg, chunk_frames=8, **BATCH_MODES[mode])
+    want = st.Stabilizer(cfg, params, device=dev).stabilize_clip(clips[0])
+    model = st.build_model(mcfg, params, dev)
+    lag = cfg.path_smooth_lag
+    chunks = -(-(clips.shape[1] + lag) // cfg.chunk_frames)
+    for b in (1, 2, 4, 8):
+        before = warp_wide.LAUNCHES
+        if lag:
+            out = st.drive_chunked_batch_lag(
+                lambda m, f, h, c: dp._stabilize_chunk_batch_lag(
+                    cfg, m, f, h, c), model, cfg, clips[:b])
+        else:
+            step = lambda m, f, h: dp._stabilize_chunk_batch(cfg, m, f, h)
+            if cfg.path_smooth:
+                step = pathsmooth.thread_batch_state(
+                    lambda m, f, h, s: dp._stabilize_chunk_batch_smooth(
+                        cfg, m, f, h, s), b, dev)
+            out = st.drive_chunked_batch(step, model, cfg, clips[:b])
+        assert warp_wide.LAUNCHES == before + chunks
+        np.testing.assert_array_equal(out[0], want, err_msg=f"B={b}")
+
+
+@pytest.mark.parametrize("mode", list(BATCH_MODES))
+def test_chunk_size_invariance_on_the_card(dev, mode):
+    from dvsg_tpu_torch.config import StabilizeConfig
+    from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
+    params, mcfg, clips = _fast_setup(n_clips=1, frames=40)
+    outs = [Stabilizer(StabilizeConfig(model=mcfg, chunk_frames=t,
+                                       **BATCH_MODES[mode]), params,
+                       device=dev).stabilize_clip(clips[0])
+            for t in (8, 16)]
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def test_engine_and_multi_on_the_card_equal_single(dev):
+    """BatchStabilizer from concurrent threads and stabilize_multi on the
+    card give each clip its single-clip bytes."""
+    import concurrent.futures
+    from dvsg_tpu_torch.config import StabilizeConfig
+    from dvsg_tpu_torch.pipeline.batching import BatchStabilizer
+    from dvsg_tpu_torch.pipeline.multiclip import stabilize_multi
+    from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
+    params, mcfg, clips = _fast_setup(n_clips=3)
+    lens = (24, 17, 9)
+    cfg = StabilizeConfig(model=mcfg, chunk_frames=8, path_smooth=32)
+    single = Stabilizer(cfg, params, device=dev)
+    want = [single.stabilize_clip(c[:n]) for c, n in zip(clips, lens)]
+    engine = BatchStabilizer(cfg, params, max_batch=3, window_s=5.0,
+                             device=dev)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(3) as ex:
+            got = list(ex.map(engine.stabilize_clip,
+                              [c[:n] for c, n in zip(clips, lens)]))
+        assert engine.stats["max_group"] == 3
+    finally:
+        engine.close()
+    writers = [_Writer() for _ in lens]
+    res = stabilize_multi(cfg, params, [_Reader(c[:n]) for c, n in
+                                        zip(clips, lens)],
+                          writers, device=dev)
+    assert res.ok
+    for w_, g, w in zip(writers, got, want):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(np.concatenate(w_.chunks), w)

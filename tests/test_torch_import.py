@@ -45,7 +45,9 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert "dvsg_tpu_torch.train.loop" in mods and len(mods) > 20
     assert {f"dvsg_tpu_torch.pipeline.{m}" for m in
-            ("pathsmooth", "autocrop", "online", "overlap")} <= set(mods)
+            ("pathsmooth", "autocrop", "online", "overlap", "batching",
+             "multiclip")} <= set(mods)
+    assert {"dvsg_tpu_torch.parallel.dp", "dvsg_tpu_torch.serve"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", _PROBE.format(mods=mods)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
