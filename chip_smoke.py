@@ -70,7 +70,24 @@ on failure:
    clips end to end through ``stabilize_multi`` beside one after another
    through the sync stream; and where OpenCV imports, one mp4 POSTed to a
    localhost server (``dvsg_tpu_torch/serve.py``) whose response equals
-   the single-clip output, encoded.
+   the single-clip output, encoded;
+9. parallel and export, both presets, 1280x720, T = 16, four seeded
+   48-frame clips: (a) a world of one rank over NCCL on cuda:0:
+   ``ShardedClipStabilizer`` (plain, causal, lag) and
+   ``TemporalShardedStabilizer`` (plain, causal) byte-equal to
+   ``stabilize_clip`` with one offsets-kernel launch per (batched) chunk,
+   and ``make_dp_train_step`` equal to ``train_step`` to the last bit over
+   two steps (cuDNN's deterministic algorithms), one B2 and one B3 pair a
+   step; (b) two ranks sharing cuda:0 over gloo, spawned: temporal (plain,
+   causal) and clip-sharded (plain) byte-equal to one process on every
+   rank, the DP step within 1e-6 of the parameters and 1e-5 of the loss;
+   (c) the chunk step exported (``export.py``), saved, loaded and run over
+   the clip (plain, causal), byte-equal to ``stabilize_clip`` with one
+   launch per chunk through the artifact, and a ``fast`` batch artifact of
+   four clips byte-equal to the live batched step; (d) the artifact's
+   chunk against the live chunk, back to back and queued, export seconds
+   and artifact bytes, the temporal chunk end to end on one and two
+   ranks, the DP step against ``train_step``.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes every
@@ -82,6 +99,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import hashlib
 import json
 import math
 import os
@@ -1960,6 +1978,396 @@ def phase_batch(seed: int, dev, work_dir: str):
     return launches, results
 
 
+# --- parallel and export --------------------------------------------------
+
+# Phase 9: the clips of the clip-sharded and export checks, the ranks that
+# share the card over gloo, the steps of the data-parallel train checks.
+P9_CLIPS, P9_FRAMES, P9_RANKS, P9_STEPS = 4, 48, 2, 2
+
+
+def frame_hashes(frames: np.ndarray) -> list:
+    return [hashlib.sha1(np.ascontiguousarray(f).tobytes()).hexdigest()
+            for f in frames]
+
+
+def same_hashes(name: str, got: list, want: list) -> None:
+    bad = sum(g != w for g, w in zip(got, want))
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{name}: {bad} of {len(want)} frames differ "
+                             f"from one process ({len(got)} frames)")
+
+
+def p9_clips(seed: int, dev) -> np.ndarray:
+    return np.stack([make_clip(seed + 90 + i, P9_FRAMES, HEIGHT, WIDTH,
+                               dev)[0] for i in range(P9_CLIPS)])
+
+
+def p9_train_cfg(mcfg, seed: int) -> TrainConfig:
+    return TrainConfig(model=mcfg, batch_size=TRAIN_BATCH, steps=10,
+                       warmup_steps=2, learning_rate=TRAIN_LR, seed=seed)
+
+
+def timed(fn):
+    """(fn(), seconds on the host clock, the card synchronized on both
+    sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms: its default backward sums in an
+    order that varies from run to run, and two runs of one step are held
+    to the last bit here."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def dp_steps(state, tcfg, seed: int, step) -> dict:
+    """``P9_STEPS`` steps ``step(generator)`` on ``state``: every loss, and
+    the parameters and gradients of the first step (its rate is the
+    schedule's first, 0) and the parameters after the last."""
+    def host(tensors):
+        return {k: v.detach().cpu().numpy().copy() for k, v in tensors}
+
+    out = {"losses": []}
+    for i in range(P9_STEPS):
+        out["losses"].append(float(step(train_loop.step_generator(
+            seed, i))["total"]))
+        if i == 0:
+            out["grads"] = host((k, p.grad) for k, p in
+                                state.model.named_parameters())
+            out["params0"] = host(state.params.items())
+    out["params"] = host(state.params.items())
+    return out
+
+
+def _p9_rank(rank: int, n: int, store: str, work_dir: str, seed: int,
+             device: str) -> None:
+    """One of the ranks that share ``device`` over gloo: temporal (plain,
+    causal) and clip-sharded (plain) stabilization and the data-parallel
+    train step, both presets; writes frame hashes, losses, parameters and
+    times for the parent to hold against one process."""
+    import pickle
+    import torch.distributed as dist
+    from dvsg_tpu_torch.parallel import dryrun
+    from dvsg_tpu_torch.parallel import mesh as mesh_lib
+    from dvsg_tpu_torch.parallel.temporal import TemporalShardedStabilizer
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dryrun.join_group(rank, n, store, "gloo", timeout_s=300)
+    try:
+        mesh = mesh_lib.make_mesh(device=dev)
+        if mesh.backend != "gloo" or mesh.size != n:
+            raise AssertionError(f"mesh {mesh}")
+        clips = p9_clips(seed, dev)
+        res = {}
+        for preset, ckpt in PRESETS:
+            params, mcfg = load_npz(os.path.join(ROOT, "checkpoints", ckpt))
+            base = StabilizeConfig(model=mcfg, chunk_frames=T_CHUNK)
+            r = {}
+            for mode, cfg in (("plain", base),
+                              ("causal", base.replace(path_smooth=SMOOTH))):
+                temporal = TemporalShardedStabilizer(cfg, params, mesh)
+                temporal.stabilize_clip(clips[0, :T_CHUNK])      # warm-up
+                warp_wide.LAUNCHES = 0
+                out, wall = timed(lambda: temporal.stabilize_clip(clips[0]))
+                r[f"temporal_{mode}"] = {
+                    "hashes": frame_hashes(out),
+                    "launches": warp_wide.LAUNCHES,
+                    "chunk_ms": 1e3 * wall / (P9_FRAMES // T_CHUNK)}
+            warp_wide.LAUNCHES = 0
+            out = dp.ShardedClipStabilizer(base, params, mesh
+                                           ).stabilize_clips(clips)
+            r["sharded_plain"] = {"hashes": [frame_hashes(c) for c in out],
+                                  "launches": warp_wide.LAUNCHES}
+            tcfg = p9_train_cfg(mcfg, seed)
+            state = dp.replicate_state(
+                train_loop.build_state(tcfg, params, dev), mesh)
+            step_fn, shard_batch = dp.make_dp_train_step(tcfg, mesh)
+            r["dp"] = dp_steps(state, tcfg, seed, lambda gen: step_fn(
+                state, shard_batch(gen)))
+            res[preset] = r
+        with open(os.path.join(work_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel_export(seed: int, dev, work_dir: str):
+    """Parallel and export, both presets, 1280x720: a world of one over
+    NCCL (clip-sharded plain, causal and lag; temporal plain and causal;
+    the data-parallel train step), two ranks sharing cuda:0 over gloo
+    (temporal, clip-sharded, the train step), and exported chunk programs
+    saved, loaded and run (plain and causal single-clip, a batch of four).
+    Returns (B1 launches, B2/B3 launches, results)."""
+    import pickle
+    import torch.distributed as dist
+    from dvsg_tpu_torch import export as export_lib
+    from dvsg_tpu_torch.parallel import dryrun
+    from dvsg_tpu_torch.parallel import mesh as mesh_lib
+    from dvsg_tpu_torch.parallel.temporal import TemporalShardedStabilizer
+
+    clips = p9_clips(seed, dev)
+    n_chunks = math.ceil(P9_FRAMES / T_CHUNK)
+    launches, results, want = 0, {}, {}
+    train_counts = {k: 0 for k in train_launches()}
+
+    # (a) A world of one over NCCL.
+    dryrun.join_group(0, 1, os.path.join(work_dir, "nccl_store"), "nccl",
+                      timeout_s=300)
+    try:
+        mesh = mesh_lib.make_mesh(device=dev)
+        if mesh.backend != "nccl":
+            raise AssertionError(f"world of one on {mesh.backend}")
+        for preset, ckpt in PRESETS:
+            params, mcfg = load_npz(os.path.join(ROOT, "checkpoints", ckpt))
+            base = StabilizeConfig(model=mcfg, chunk_frames=T_CHUNK)
+            cfgs = {"plain": base, "causal": base.replace(path_smooth=SMOOTH),
+                    "lag": base.replace(path_smooth=SMOOTH,
+                                        path_smooth_lag=LAG)}
+            w = want[preset] = {
+                m: [stab_lib.Stabilizer(c, params, device="cuda")
+                    .stabilize_clip(x) for x in clips]
+                for m, c in cfgs.items()}
+            res = {"sharded": {}, "temporal": {}}
+            for mode, cfg in cfgs.items():
+                expect = math.ceil((P9_FRAMES + cfg.path_smooth_lag)
+                                   / T_CHUNK)
+                sharded = dp.ShardedClipStabilizer(cfg, params, mesh)
+                out, n = counted(
+                    f"[{preset} {mode}] ShardedClipStabilizer (NCCL, one "
+                    f"rank)", expect, lambda: sharded.stabilize_clips(clips))
+                launches += n
+                same_bytes(f"[{preset} {mode}] ShardedClipStabilizer", out,
+                           w[mode])
+                res["sharded"][mode] = {"launches": n}
+            for mode in ("plain", "causal"):
+                temporal = TemporalShardedStabilizer(cfgs[mode], params, mesh)
+                out, n = counted(
+                    f"[{preset} {mode}] TemporalShardedStabilizer (NCCL, one "
+                    f"rank)", n_chunks,
+                    lambda: temporal.stabilize_clip(clips[0]))
+                launches += n
+                same_bytes(f"[{preset} {mode}] TemporalShardedStabilizer",
+                           [out], w[mode][:1])
+                _, wall = timed(lambda: temporal.stabilize_clip(clips[0]))
+                res["temporal"][mode] = {
+                    "launches": n, "chunk_ms": 1e3 * wall / n_chunks}
+
+            # The data-parallel train step against train_step.
+            tcfg = p9_train_cfg(mcfg, seed)
+            one = train_loop.build_state(tcfg, params, dev)
+            state = dp.replicate_state(
+                train_loop.build_state(tcfg, params, dev), mesh)
+            step_fn, shard_batch = dp.make_dp_train_step(tcfg, mesh)
+            with deterministic_cudnn():
+                for step in range(P9_STEPS):
+                    gen = lambda: train_loop.step_generator(seed, step)
+                    reset_train_launches()
+                    a = train_loop.train_step(one, gen(), tcfg)
+                    b = step_fn(state, shard_batch(gen()))
+                    torch.cuda.synchronize()
+                    used = train_launches()
+                    if any(v != 2 for v in used.values()):
+                        raise AssertionError(f"[{preset}] train_step and the "
+                                             f"DP step launched {used}")
+                    for k, v in used.items():
+                        train_counts[k] += v // 2
+                    if float(a["total"]) != float(b["total"]):
+                        raise AssertionError(
+                            f"[{preset}] DP step loss {float(b['total'])!r} "
+                            f"!= train_step {float(a['total'])!r}")
+            for (k, x), y in zip(one.params.items(), state.params.values()):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"[{preset}] DP step parameter {k} "
+                                         "differs from train_step")
+            # Step times, draws included in both, five of each in turns.
+            steps = {
+                "train_step": lambda: train_loop.train_step(
+                    one, train_loop.step_generator(seed, 0), tcfg),
+                "dp_step": lambda: step_fn(state, shard_batch(
+                    train_loop.step_generator(seed, 0)))}
+            step_s = {k: [] for k in steps}
+            for kind in ("train_step", "dp_step", "dp_step", "train_step"):
+                step_s[kind] += [timed(steps[kind])[1] for _ in range(5)]
+            res["train"] = {f"{k}_ms": 1e3 * float(np.median(v))
+                            for k, v in step_s.items()}
+            res["train"]["bit_equal_steps"] = P9_STEPS
+            results[preset] = res
+            log(f"  [{preset}] NCCL world of one: ShardedClipStabilizer "
+                f"({P9_CLIPS} clips x {P9_FRAMES} frames) plain / causal / "
+                f"lag == stabilize_clip bytewise, one launch per batched "
+                f"chunk; TemporalShardedStabilizer plain / causal == "
+                f"stabilize_clip, {n_chunks} launches, "
+                f"{res['temporal']['plain']['chunk_ms']:.2f} / "
+                f"{res['temporal']['causal']['chunk_ms']:.2f} ms a chunk end "
+                f"to end; DP train step == train_step to the last bit over "
+                f"{P9_STEPS} steps (deterministic cuDNN), one B2 and one B3 "
+                f"pair a step; step {res['train']['dp_step_ms']:.2f} ms vs "
+                f"train_step {res['train']['train_step_ms']:.2f} ms")
+    finally:
+        dist.destroy_process_group()
+
+    # The one-process losses and parameters the two ranks are held to: the
+    # same steps again through train_step (cuDNN's default algorithms, as
+    # the ranks run).
+    one_process = {}
+    for preset, ckpt in PRESETS:
+        params, mcfg = load_npz(os.path.join(ROOT, "checkpoints", ckpt))
+        tcfg = p9_train_cfg(mcfg, seed)
+        one = train_loop.build_state(tcfg, params, dev)
+        one_process[preset] = dp_steps(one, tcfg, seed, lambda gen:
+                                       train_loop.train_step(one, gen, tcfg))
+
+    # (b) Two ranks sharing cuda:0 over gloo (NCCL takes one rank a card),
+    # spawned: this process has CUDA initialized.
+    from dvsg_tpu_torch.parallel.dryrun import run_ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_ranks(_p9_rank, P9_RANKS, args=(P9_RANKS, os.path.join(
+        work_dir, "gloo_store"), work_dir, seed, str(dev)), timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(P9_RANKS):
+        with open(os.path.join(work_dir, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    for preset, _ in PRESETS:
+        w, res = want[preset], results[preset]
+        res["two_ranks"] = {"spawn_s": spawn_s}
+        for r, got in enumerate(ranks):
+            g = got[preset]
+            for mode in ("plain", "causal"):
+                same_hashes(f"[{preset} {mode}] temporal, rank {r} of "
+                            f"{P9_RANKS}", g[f"temporal_{mode}"]["hashes"],
+                            frame_hashes(w[mode][0]))
+                if g[f"temporal_{mode}"]["launches"] != n_chunks:
+                    raise AssertionError(
+                        f"[{preset} {mode}] temporal rank {r}: "
+                        f"{g[f'temporal_{mode}']['launches']} launches")
+            for i in range(P9_CLIPS):
+                same_hashes(f"[{preset}] sharded clip {i}, rank {r}",
+                            g["sharded_plain"]["hashes"][i],
+                            frame_hashes(w["plain"][i]))
+            if g["sharded_plain"]["launches"] != n_chunks:
+                raise AssertionError(f"[{preset}] sharded rank {r}: "
+                                     f"{g['sharded_plain']['launches']} "
+                                     f"launches")
+            # A step within 1e-6 of the parameters and 1e-5 of the loss
+            # (tests/test_parallel.py's bounds); its gradient, summed over
+            # the ranks in another order, within 1e-3 of each tensor's
+            # largest (cuDNN's backward sums in a run-dependent order).
+            # After the second step's first real update the parameters are
+            # recorded, not held: Adam's g/sqrt(v) amplifies the rounding
+            # of near-zero gradients.
+            ref, got = one_process[preset], g["dp"]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
+                got["losses"], ref["losses"]))
+            param_abs = max(float(np.abs(got["params0"][k] - v).max())
+                            for k, v in ref["params0"].items())
+            grad_rel = max(float(np.abs(got["grads"][k] - v).max())
+                           / max(float(np.abs(v).max()), 1e-30)
+                           for k, v in ref["grads"].items())
+            last_abs = max(float(np.abs(got["params"][k] - v).max())
+                           for k, v in ref["params"].items())
+            if loss_rel > 1e-5 or param_abs > 1e-6 or grad_rel > 1e-3:
+                raise AssertionError(
+                    f"[{preset}] DP step over {P9_RANKS} ranks: loss "
+                    f"{loss_rel:.2e} relative, parameters {param_abs:.2e}, "
+                    f"gradients {grad_rel:.2e}")
+            res["two_ranks"][f"rank{r}"] = {
+                "temporal_chunk_ms": {m: g[f"temporal_{m}"]["chunk_ms"]
+                                      for m in ("plain", "causal")},
+                "dp_loss_rel": loss_rel, "dp_param_abs": param_abs,
+                "dp_grad_rel": grad_rel,
+                f"dp_param_abs_after_{P9_STEPS}_steps": last_abs}
+        log(f"  [{preset}] {P9_RANKS} gloo ranks sharing cuda:0 "
+            f"(spawned, {spawn_s:.1f} s): temporal plain / causal and "
+            f"clip-sharded plain == one process bytewise on every rank, "
+            f"{n_chunks} launches a rank; temporal chunk end to end "
+            + ", ".join(f"rank {r} {v['temporal_chunk_ms']['plain']:.2f} / "
+                        f"{v['temporal_chunk_ms']['causal']:.2f} ms"
+                        for r, v in ((r, res["two_ranks"][f"rank{r}"])
+                                     for r in range(P9_RANKS)))
+            + f"; DP steps: loss within {loss_rel:.2e}, first step's "
+            f"parameters {param_abs:.2e}, gradients {grad_rel:.2e} of the "
+            f"largest; parameters after {P9_STEPS} steps {last_abs:.2e} "
+            f"(rank {P9_RANKS - 1})")
+
+    # (c) Export on the card.
+    for preset, ckpt in PRESETS:
+        params, mcfg = load_npz(os.path.join(ROOT, "checkpoints", ckpt))
+        base = StabilizeConfig(model=mcfg, chunk_frames=T_CHUNK)
+        model = stab_lib.build_model(mcfg, params, dev)
+        res = results[preset]["export"] = {}
+        for mode, cfg in (("plain", base),
+                          ("causal", base.replace(path_smooth=SMOOTH))):
+            path = os.path.join(work_dir, f"{preset}_{mode}.dvsgt")
+            exp = export_lib.export_chunk_program(cfg, params, HEIGHT, WIDTH,
+                                                  device=dev)
+            export_lib.save_exported(exp, path, cfg)
+            loaded = export_lib.load_exported(path)
+            out, n = counted(f"[{preset} {mode}] exported program", n_chunks,
+                             lambda: loaded.stabilize_clip(clips[0]))
+            launches += n
+            same_bytes(f"[{preset} {mode}] exported program", [out],
+                       want[preset][mode][:1])
+            with torch.inference_mode():
+                frames = stab_lib.put_frames(clips[0, :T_CHUNK], dev)
+                halo = stab_lib.initial_halo(cfg, clips[0, 0], dev)
+                state = pathsmooth.initial_state(dev)
+                live = ((lambda: stab_lib.stabilize_chunk_smooth_impl(
+                            cfg, model, frames, halo, state))
+                        if cfg.path_smooth else
+                        (lambda: stab_lib.stabilize_chunk_impl(
+                            cfg, model, frames, halo)))
+                art = lambda: loaded.chunk(frames, halo, state)
+                times = {}
+                for name, fn in (("live", live), ("artifact", art),
+                                 ("artifact", art), ("live", live)):
+                    times.setdefault(name, []).append(
+                        {"b2b_ms": b2b_ms(fn), "queued_ms": queued_ms(fn)})
+            res[mode] = {"launches": n, "export_s": exp.export_s,
+                         "artifact_bytes": os.path.getsize(path),
+                         "chunk_ms": times}
+            log(f"  [{preset} {mode}] exported in {exp.export_s:.1f} s, "
+                f"{os.path.getsize(path)} bytes; the artifact == "
+                f"stabilize_clip bytewise, {n} launches; chunk ms back to "
+                f"back / queued, live then artifact: " + "; ".join(
+                    f"{k} " + ", ".join(f"{t['b2b_ms']:.3f} / "
+                                        f"{t['queued_ms']:.3f}" for t in v)
+                    for k, v in times.items()))
+        if preset == "fast":
+            path = os.path.join(work_dir, "fast_batch.dvsgt")
+            exp = export_lib.export_batch_program(base, params, P9_CLIPS,
+                                                  HEIGHT, WIDTH, device=dev)
+            export_lib.save_exported(exp, path, base)
+            loaded = export_lib.load_exported(path)
+            live = drive(base, model, clips, dev)
+            out, n = counted(f"[{preset}] batch artifact B={P9_CLIPS}",
+                             n_chunks, lambda: loaded.stabilize_clips(clips))
+            launches += n
+            same_bytes(f"[{preset}] batch artifact", out, live)
+            res["batch"] = {"launches": n, "export_s": exp.export_s,
+                            "artifact_bytes": os.path.getsize(path)}
+            log(f"  [{preset}] batch artifact B={P9_CLIPS}: exported in "
+                f"{exp.export_s:.1f} s, {os.path.getsize(path)} bytes, == "
+                f"the live batched step bytewise, {n} launches")
+        del model
+    return launches, train_counts, results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2023,6 +2431,14 @@ def main(argv=None) -> int:
         batch_launches, batch_results = phase_batch(args.seed, dev, work_dir)
     launches += batch_launches
 
+    log("== phase 9: parallel and export, both presets, 1280x720")
+    with tempfile.TemporaryDirectory() as work_dir:
+        p9_launches, p9_train, p9_results = phase_parallel_export(
+            args.seed, dev, work_dir)
+    launches += p9_launches
+    for k, v in p9_train.items():
+        train_counts[k] += v
+
     def entry(name, source, replaces, n_launches, err, rec):
         return {"name": name, "route": "cuda",
                 "source": f"dvsg_tpu_torch/csrc/{source}.cu",
@@ -2057,6 +2473,7 @@ def main(argv=None) -> int:
               "kernels": kernels, "b1": b1, "dense_kernels": dense,
               "presets": results, "smoothing": smooth_results,
               "training": train_results, "batch": batch_results,
+              "parallel_export": p9_results,
               "eval": eval_results, "build_s": build_s, "ptxas": ptxas,
               "build_each_s": build_each,
               "wall_s": time.perf_counter() - t_start}

@@ -5,6 +5,12 @@
       --preset quality --platform cpu
   python -m dvsg_tpu_torch stabilize-batch --inputs a.mp4 b.mp4 \\
       --outputs a_out.mp4 b_out.mp4
+  torchrun --nproc-per-node 4 -m dvsg_tpu_torch stabilize-batch \\
+      --inputs a.mp4 b.mp4 c.mp4 d.mp4 --outputs ...   (one clip per card)
+  python -m dvsg_tpu_torch export --preset fast --size 720 1280 \\
+      --output fast_720p.dvsgt
+  python -m dvsg_tpu_torch stabilize --artifact fast_720p.dvsgt \\
+      --input shaky.mp4 --output stable.mp4
   python -m dvsg_tpu_torch train --checkpoint ckpt/ --steps 1000
   python -m dvsg_tpu_torch eval --checkpoint ckpt/ --clips 3
   python -m dvsg_tpu_torch stabilize --input in/ --output out/ \\
@@ -16,8 +22,9 @@ With no ``--checkpoint``/``--preset`` and no model flags, ``stabilize``,
 ``stabilize-batch`` and ``eval`` use the committed ``fast`` pretrained
 model; model flags without a checkpoint select an untrained (identity)
 model. ``--checkpoint`` takes a training checkpoint directory or an
-``.npz``. The flags of the reference CLI that are not ported yet are
-accepted by the parser and refused with exit code 2: ``--artifact``,
+``.npz``. ``export`` writes the port's own artifact (export.py), which
+``stabilize --artifact`` runs. The flags of the reference CLI that are not
+ported yet are accepted by the parser and refused with exit code 2:
 ``--profile-dir``, ``--dtype bfloat16``, and ``--warp-impl pallas|lax``
 (the port has one warp route).
 """
@@ -38,7 +45,6 @@ _CHECKPOINT_DIR = os.path.join(
 
 # Reference flags this port refuses for now: (flag, argparse kwargs).
 _UNPORTED = (
-    ("--artifact", dict()),
     ("--profile-dir", dict()),
 )
 
@@ -144,7 +150,7 @@ def _load_model(args):
 
 def _add_warp_impl_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--warp-impl", choices=("auto", "pallas", "lax"),
-                   default="auto",
+                   default=None,
                    help="accepted for the reference CLI's sake: 'auto' is "
                         "the port's one warp route (the CUDA kernel on the "
                         "card, its plain version on the CPU)")
@@ -152,7 +158,7 @@ def _add_warp_impl_arg(p: argparse.ArgumentParser) -> None:
 
 def _bad_warp_impl(warp_impl: str) -> bool:
     """Refuse a warp route the port does not have (printing why)."""
-    if warp_impl == "auto":
+    if warp_impl in (None, "auto"):
         return False
     _err(f"--warp-impl {warp_impl}: the port has one warp route, the CUDA "
          "kernel on the card and its plain version on the CPU (--platform "
@@ -252,9 +258,10 @@ def _add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--preset", choices=tuple(_PRESETS),
                    help="committed pretrained model: 'fast' (128^2 "
                         "encoder) or 'quality' (256^2 encoder)")
-    p.add_argument("--chunk-frames", type=int, default=16,
+    # None sentinels: an --artifact run refuses what was baked at export.
+    p.add_argument("--chunk-frames", type=int, default=None,
                    help="frames per device step (default 16)")
-    p.add_argument("--strength", type=float, default=1.0,
+    p.add_argument("--strength", type=float, default=None,
                    help="stabilization strength in [0, 2]: 1 = full "
                         "correction, 0 = passthrough")
     p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda",
@@ -269,6 +276,10 @@ def _add_common_args(p: argparse.ArgumentParser) -> None:
 def _check_common(args):
     """(params, ModelConfig, border crop or 'auto'), or None after printing
     why the flags are refused."""
+    if args.strength is None:
+        args.strength = 1.0
+    if args.chunk_frames is None:
+        args.chunk_frames = 16
     if _bad_warp_impl(args.warp_impl):
         return None
     border_crop = _parse_border_crop(args.border_crop)
@@ -312,6 +323,10 @@ def stabilize_main(argv=None) -> int:
                    help="overlap decode, compute and encode (threads, "
                         "pinned buffers, a copy stream); no --resume-dir, "
                         "no --path-smooth-lag")
+    p.add_argument("--artifact", default=None,
+                   help="run an exported program (python -m dvsg_tpu_torch "
+                        "export) instead of a checkpoint: weights, chunk "
+                        "size, strength, crop and smoothing are baked in")
     _add_common_args(p)
     _add_unported(p, _UNPORTED)
     args = p.parse_args(argv)
@@ -328,32 +343,47 @@ def stabilize_main(argv=None) -> int:
         # Opening a container writer truncates it: a resumed job would
         # lose its partial output.
         return _err("--resume-dir needs a frame-directory --output")
-    checked = _check_common(args)
-    if checked is None:
-        return 2
-    params, mcfg, border_crop = checked
 
     from dvsg_tpu_torch.config import StabilizeConfig
     from dvsg_tpu_torch.pipeline import pathsmooth
     from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
     from dvsg_tpu_torch.utils.metrics import StageTimer, write_metrics_jsonl
 
-    try:
-        cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
-                              strength=args.strength, **_smooth_kwargs(args))
-        if args.overlap:
-            pathsmooth.lag_reject(cfg, "--overlap (drop --overlap for a "
-                                  "lag run)")
-    except ValueError as e:
-        return _err(str(e))
-    if border_crop == "auto":
-        # Pass 1 shares chunking, strength and the smoothing margin with
-        # pass 2, so both passes predict the same offsets.
-        border_crop = _run_autocrop_scan(cfg, params, [args.input],
-                                         args.platform)
-    cfg = cfg.replace(border_crop=border_crop)
-    stab = Stabilizer(cfg, params, device=args.platform)
+    if args.artifact:
+        loaded = _load_artifact(args)
+        if loaded is None:
+            return 2
+        cfg = loaded.cfg
+    else:
+        checked = _check_common(args)
+        if checked is None:
+            return 2
+        params, mcfg, border_crop = checked
+        try:
+            cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
+                                  strength=args.strength,
+                                  **_smooth_kwargs(args))
+            if args.overlap:
+                pathsmooth.lag_reject(cfg, "--overlap (drop --overlap for a "
+                                      "lag run)")
+        except ValueError as e:
+            return _err(str(e))
+        if border_crop == "auto":
+            # Pass 1 shares chunking, strength and the smoothing margin
+            # with pass 2, so both passes predict the same offsets.
+            border_crop = _run_autocrop_scan(cfg, params, [args.input],
+                                             args.platform)
+        cfg = cfg.replace(border_crop=border_crop)
+        stab = Stabilizer(cfg, params, device=args.platform)
     reader = video_io.VideoReader(args.input)
+    if args.artifact:
+        if (reader.height, reader.width) != (loaded.height, loaded.width):
+            reader.close()
+            return _err(f"artifact was exported for {loaded.width}x"
+                        f"{loaded.height}; input is {reader.width}x"
+                        f"{reader.height} (export again with --size, or "
+                        "stabilize from a checkpoint)")
+        stab = loaded.engine()
     writer = video_io.VideoWriter(args.output, reader.width, reader.height,
                                   reader.fps)
     timer = StageTimer()
@@ -385,18 +415,69 @@ def stabilize_main(argv=None) -> int:
     return 0
 
 
+def _load_artifact(args):
+    """The ExportedStabilizer ``--artifact`` names, or None after printing
+    why the flags refuse it: the artifact holds the weights, the chunk
+    size, strength, crop and smoothing it was exported with."""
+    if args.checkpoint or args.preset:
+        _err("--artifact already contains the weights; drop "
+             "--checkpoint/--preset")
+        return None
+    if str(args.border_crop).strip().lower() == "auto":
+        _err("--border-crop auto needs the two-pass pipeline; an --artifact "
+             "bakes its crop at export time")
+        return None
+    crop = _parse_border_crop(args.border_crop)
+    if crop is None:
+        return None
+    if crop != 0.0:
+        _err("the artifact's border-crop was baked at export time; export "
+             "again with python -m dvsg_tpu_torch export --border-crop")
+        return None
+    baked = [name for name, given in
+             (("--strength", args.strength is not None),
+              ("--chunk-frames", args.chunk_frames is not None),
+              ("--warp-impl", args.warp_impl is not None),
+              ("--path-smooth", args.path_smooth != 0),
+              ("--path-smooth-lag", args.path_smooth_lag != 0)) if given]
+    if baked:
+        _err(f"{', '.join(baked)}: baked into the artifact at export time; "
+             "export again, or stabilize from a checkpoint")
+        return None
+    if not os.path.exists(args.artifact):
+        _err(f"artifact {args.artifact} does not exist")
+        return None
+    from dvsg_tpu_torch import export as export_lib
+    try:
+        loaded = export_lib.load_exported(args.artifact,
+                                          device=args.platform)
+    except ValueError as e:
+        _err(str(e))
+        return None
+    cfg = loaded.cfg
+    print(f"artifact {args.artifact}: T={cfg.chunk_frames}, "
+          f"strength={cfg.strength}, border_crop={cfg.border_crop}, "
+          f"path_smooth={cfg.path_smooth} (baked at export)",
+          file=sys.stderr)
+    return loaded
+
+
 def stabilize_batch_main(argv=None) -> int:
     """Stabilize a batch of clips together: one batched device step per
-    chunk for all of them (pipeline/multiclip.py)."""
+    chunk for all of them (pipeline/multiclip.py). Under ``torchrun
+    --nproc-per-node N`` each rank drives ``cuda:$LOCAL_RANK`` and, when the
+    clip count divides over the N ranks, stabilizes and writes its own
+    N-th of the clips (per-clip data parallelism); otherwise rank 0 runs
+    the whole batch."""
     p = argparse.ArgumentParser(
         prog="python -m dvsg_tpu_torch stabilize-batch",
         description="Stabilize a batch of same-resolution clips together.")
     p.add_argument("--inputs", nargs="+", required=True)
     p.add_argument("--outputs", nargs="+", required=True)
     p.add_argument("--no-mesh", action="store_true",
-                   help="accepted: per-clip data parallelism over several "
-                        "cards is not ported yet, so the batch runs on one "
-                        "device either way")
+                   help="under torchrun with several ranks, run the whole "
+                        "batch on rank 0 instead of sharding the clips over "
+                        "the ranks")
     p.add_argument("--border-crop", default="0",
                    help="crop fraction, or 'auto': a predict-only scan over "
                         "all clips picks one shared smallest crop")
@@ -409,11 +490,11 @@ def stabilize_batch_main(argv=None) -> int:
         return 2
     params, mcfg, border_crop = checked
 
+    import torch
+
     from dvsg_tpu_torch.config import StabilizeConfig
+    from dvsg_tpu_torch.parallel import mesh as mesh_lib
     from dvsg_tpu_torch.pipeline import pathsmooth
-    from dvsg_tpu_torch.pipeline.multiclip import stabilize_multi
-    from dvsg_tpu_torch.utils import video_io
-    from dvsg_tpu_torch.utils.metrics import StageTimer, write_metrics_jsonl
 
     try:
         cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
@@ -422,6 +503,40 @@ def stabilize_batch_main(argv=None) -> int:
                               "for a lag run)")
     except ValueError as e:
         return _err(str(e))
+    # A process group when torchrun started this process (left again at
+    # the end); else one rank.
+    already = torch.distributed.is_initialized()
+    owns_group = (mesh_lib.init_distributed(device=args.platform) is not None
+                  and not already)
+    try:
+        return _run_batch(args, cfg, params, border_crop)
+    finally:
+        if owns_group:
+            torch.distributed.destroy_process_group()
+
+
+def _run_batch(args, cfg, params, border_crop) -> int:
+    """stabilize-batch after its flags are checked: the mesh, the readers
+    and this rank's writers, the batch, the summary."""
+    from dvsg_tpu_torch.parallel import mesh as mesh_lib
+    from dvsg_tpu_torch.pipeline.multiclip import stabilize_multi
+    from dvsg_tpu_torch.utils import video_io
+    from dvsg_tpu_torch.utils.metrics import StageTimer, write_metrics_jsonl
+
+    n_dev = mesh_lib.world_size()
+    rank = mesh_lib.world_rank()
+    mesh = None
+    if not args.no_mesh and n_dev > 1 and len(args.inputs) % n_dev == 0:
+        mesh = mesh_lib.make_mesh(device=args.platform)
+        if rank == 0:
+            print(f"per-clip DP over {n_dev} devices")
+    elif rank != 0:
+        print(f"rank {rank}: the batch runs on rank 0 (no mesh)",
+              file=sys.stderr)
+        return 0
+    device = mesh_lib.rank_device(args.platform)
+    mine = (mesh.shard(len(args.inputs), "clip count") if mesh is not None
+            else slice(None))
     readers = [video_io.VideoReader(p_) for p_ in args.inputs]
     writers = []
     try:
@@ -438,14 +553,17 @@ def stabilize_batch_main(argv=None) -> int:
                     "resolution)")
         if border_crop == "auto":
             border_crop = _run_autocrop_scan(cfg, params, args.inputs,
-                                             args.platform)
+                                             device)
         cfg = cfg.replace(border_crop=border_crop)
-        writers = [video_io.VideoWriter(p_, w, h, readers[i].fps)
-                   for i, p_ in enumerate(args.outputs)]
+        # Each rank opens the writers of its own clips only.
+        writers = [None] * len(args.outputs)
+        for i in range(len(args.outputs))[mine]:
+            writers[i] = video_io.VideoWriter(args.outputs[i], w, h,
+                                              readers[i].fps)
         timer = StageTimer()
         t0 = time.perf_counter()
-        result = stabilize_multi(cfg, params, readers, writers, timer=timer,
-                                 device=args.platform)
+        result = stabilize_multi(cfg, params, readers, writers, mesh=mesh,
+                                 timer=timer, device=device)
         wall = time.perf_counter() - t0
     finally:
         # Close even when stabilize_multi raises: it has joined its encode
@@ -454,7 +572,10 @@ def stabilize_batch_main(argv=None) -> int:
         for r in readers:
             r.close()
         for w_ in writers:
-            w_.close()
+            if w_ is not None:
+                w_.close()
+    if rank != 0:
+        return 0 if result.ok else 3
     written = result.frames_written
     total = sum(written)
     fps = total / wall if wall else 0.0
@@ -470,6 +591,7 @@ def stabilize_batch_main(argv=None) -> int:
             "kind": "stabilize_batch", "clips": len(written),
             "frames": total, "wall_s": wall, "fps": fps,
             "width": w, "height": h, "device": args.platform,
+            "devices": n_dev, "mesh": mesh is not None,
             "stages": timer.summary(), "failed_clips": result.failed_clips,
             "coverage_fallback_chunks": result.coverage_fallback_chunks})
     return 0 if result.ok else 3
@@ -639,16 +761,67 @@ def eval_main(argv=None) -> int:
     return 0
 
 
+def export_main(argv=None) -> int:
+    """Export the chunk step with its weights into the port's artifact
+    (export.py), for ``stabilize --artifact`` or ``export.load_exported``."""
+    p = argparse.ArgumentParser(
+        prog="python -m dvsg_tpu_torch export",
+        description="Export the per-chunk stabilization program (weights "
+                    "inside) for deployment.")
+    p.add_argument("--checkpoint", default=None,
+                   help="training checkpoint directory or .npz; the "
+                        "committed fast model if omitted (an untrained "
+                        "identity model if model flags are given)")
+    p.add_argument("--preset", choices=tuple(_PRESETS),
+                   help="committed pretrained model: 'fast' or 'quality'")
+    p.add_argument("--output", required=True, help="artifact file")
+    p.add_argument("--size", type=int, nargs=2, required=True,
+                   metavar=("H", "W"),
+                   help="frame resolution the program is traced for")
+    p.add_argument("--chunk-frames", type=int, default=16,
+                   help="frames per device step (default 16)")
+    p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda",
+                   help="device the program is traced for and runs on "
+                        "(default cuda)")
+    p.add_argument("--border-crop", type=float, default=0.0)
+    p.add_argument("--strength", type=float, default=1.0)
+    _add_smooth_args(p)
+    _add_model_args(p)
+    args = p.parse_args(argv)
+    loaded = _load_model(args)
+    if loaded is None:
+        return 2
+    params, mcfg = loaded
+    from dvsg_tpu_torch import export as export_lib
+    from dvsg_tpu_torch.config import StabilizeConfig
+    h, w = args.size
+    try:
+        cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
+                              border_crop=args.border_crop,
+                              strength=args.strength, **_smooth_kwargs(args))
+        exp = export_lib.export_chunk_program(cfg, params, h, w,
+                                              device=args.platform)
+    except ValueError as e:
+        return _err(str(e))
+    export_lib.save_exported(exp, args.output, cfg,
+                             extra={"checkpoint": args.checkpoint})
+    print(f"exported {w}x{h} T={cfg.chunk_frames} program for "
+          f"{exp.device} -> {args.output} "
+          f"({os.path.getsize(args.output) / 1e6:.1f} MB, traced in "
+          f"{exp.export_s:.1f}s)")
+    return 0
+
+
 _COMMANDS = {"stabilize": stabilize_main,
              "stabilize-batch": stabilize_batch_main, "train": train_main,
-             "eval": eval_main}
+             "eval": eval_main, "export": export_main}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] not in _COMMANDS:
         print("usage: python -m dvsg_tpu_torch "
-              "{stabilize,stabilize-batch,train,eval} "
+              "{stabilize,stabilize-batch,train,eval,export} "
               "[options]", file=sys.stderr)
         return 2
     return _COMMANDS[argv[0]](argv[1:])

@@ -5,10 +5,11 @@ same field names, defaults and checks as the JAX package's. A checkpoint's
 ``__config__`` record (a ``ModelConfig``) loads into either package, and
 ``config_to_json`` writes the record the other reads. ``io_threads`` (the
 host I/O pool size) is carried as the JAX package declares it, and read by
-nothing in either. A JAX ``StabilizeConfig`` record that names
-``warp_impl`` or ``mesh_shape`` (the warp switch and the device mesh, which
-have no counterpart in this port yet) is refused by
-``stabilize_config_from_dict``. The chunk size T is a plain default (16);
+nothing in either; so is ``mesh_shape`` (the data-parallel mesh,
+``parallel/mesh.py::make_mesh``). A JAX ``StabilizeConfig`` record that
+names ``warp_impl`` (the reference's warp switch; the port has one warp
+route) is refused by ``stabilize_config_from_dict``. The chunk size T is a
+plain default (16);
 resolution-keyed chunk bands are measured per device and are not carried
 over.
 """
@@ -63,6 +64,7 @@ class StabilizeConfig:
     strength: float = 1.0         # scale on the predicted correction:
                                   # 0 = passthrough, 1 = full, (1, 2] =
                                   # overcorrection
+    mesh_shape: Tuple[int, ...] = (1,)   # data-parallel mesh ("data",)
     io_threads: int = 4           # host decode/encode thread pool size
     queue_depth: int = 3          # staging ring depth of the overlapped
                                   # stream loop (decode, compute, encode)
@@ -167,7 +169,8 @@ def config_to_json(cfg: Any) -> str:
     return json.dumps(_to_jsonable(cfg), indent=2, sort_keys=True)
 
 
-def _tuplify(d: dict, keys=("model_size", "grid_size")) -> dict:
+def _tuplify(d: dict, keys=("model_size", "grid_size", "mesh_shape")
+             ) -> dict:
     out = dict(d)
     for k in keys:
         if k in out and isinstance(out[k], list):

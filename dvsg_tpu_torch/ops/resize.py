@@ -20,10 +20,13 @@ operator rows sum to 1.
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
@@ -69,7 +72,38 @@ def _resize_matrix(n_in: int, n_out: int, method: str = "linear"
     return m
 
 
-@functools.lru_cache(maxsize=64)
+def tensor_cache(maxsize: int):
+    """An LRU cache, as ``functools.lru_cache``, for functions that build a
+    tensor from hashable arguments, which never keeps a fake tensor: under
+    ``torch.export``'s tracing a table built on first use is a FakeTensor,
+    and a cache holding it would hand it to every later live call. (A table
+    cached before the trace is a real tensor, which the trace records as a
+    constant.)"""
+    def deco(build):
+        store: collections.OrderedDict = collections.OrderedDict()
+        lock = threading.Lock()
+
+        @functools.wraps(build)
+        def get(*key):
+            with lock:
+                t = store.get(key)
+                if t is not None:
+                    store.move_to_end(key)
+                    return t
+            t = build(*key)
+            if not isinstance(t, FakeTensor):
+                with lock:
+                    store[key] = t
+                    if len(store) > maxsize:
+                        store.popitem(last=False)
+            return t
+
+        get.cache_clear = store.clear
+        return get
+    return deco
+
+
+@tensor_cache(maxsize=64)
 def _matrix_on(n_in: int, n_out: int, scale: float,
                device: torch.device, method: str) -> torch.Tensor:
     m = _resize_matrix(n_in, n_out, method) * np.float32(scale)

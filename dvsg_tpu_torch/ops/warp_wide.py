@@ -13,6 +13,13 @@ Kernels and plain version agree within 1 LSB: the kernels compute the same
 coordinates through a different order of f32 operations, and round their
 0..255 accumulator where the plain version rounds (x / 255) * 255.
 
+The offsets are upsampled in two halves: the vertical one
+(``offset_rows``) is a plain matrix product, and the rest runs in the
+registered op ``torch.ops.dvsg_torch.warp_u8_offsets_rows(frames, rows,
+crop)``: the kernel on the card, the plain version on the CPU. Being an op
+of the dispatcher, it is what ``torch.export`` records in an exported
+chunk step (export.py), where a ctypes launch could not be traced.
+
 ``warp_u8_batch`` is the dense-grid form: uint8 (B, H, W, C) frames and
 (B, Ho, Wo, 2) normalized grids → uint8 (B, Ho, Wo, C), any output size.
 On a CUDA tensor it launches one of the two kernels of
@@ -68,8 +75,21 @@ def warp_u8_offsets_plain(frames_u8: torch.Tensor, offsets: torch.Tensor,
                           border_crop: float = 0.0) -> torch.Tensor:
     """The plain PyTorch version of the kernel (any device)."""
     _check(frames_u8, offsets, border_crop)
+    return warp_u8_rows_plain(frames_u8,
+                              offset_rows(offsets, frames_u8.shape[1]),
+                              border_crop)
+
+
+def warp_u8_rows_plain(frames_u8: torch.Tensor, rows: torch.Tensor,
+                       border_crop: float) -> torch.Tensor:
+    """The plain version from the offset rows (B, H, gw, 2): the horizontal
+    half of the upsample, the identity grid zoomed by the crop, the warp:
+    ``grid_from_offsets``'s arithmetic, step for step."""
     h, w = frames_u8.shape[1], frames_u8.shape[2]
-    grids = grid_ops.grid_from_offsets(offsets, h, w, border_crop)
+    cm = resize_ops._matrix(rows.shape[2], w, rows)
+    dense = torch.einsum("qw,...pwc->...pqc", cm, rows)
+    grids = (grid_ops.identity_grid(h, w, rows.device)
+             * (1.0 - 2.0 * border_crop) + dense)
     return warp_ref.warp_quantize_oracle(frames_u8, grids)
 
 
@@ -143,10 +163,31 @@ def warp_u8_offsets(frames_u8: torch.Tensor, offsets: torch.Tensor,
     the plain version.
     """
     _check(frames_u8, offsets, border_crop)
-    if not frames_u8.is_cuda:
-        return warp_u8_offsets_plain(frames_u8, offsets, border_crop)
-    rows = offset_rows(offsets, frames_u8.shape[1])
-    return _launch(frames_u8.contiguous(), rows, border_crop)
+    return warp_u8_offsets_rows(frames_u8,
+                                offset_rows(offsets, frames_u8.shape[1]),
+                                float(border_crop))
+
+
+@torch.library.custom_op("dvsg_torch::warp_u8_offsets_rows", mutates_args=(),
+                         device_types="cpu")
+def warp_u8_offsets_rows(frames_u8: torch.Tensor, rows: torch.Tensor,
+                         border_crop: float) -> torch.Tensor:
+    """uint8 (B, H, W, C) frames × their (B, H, gw, 2) offset rows →
+    (B, H, W, C) uint8: the offsets kernel as an op of the dispatcher. On
+    the CPU it is the plain version."""
+    return warp_u8_rows_plain(frames_u8, rows, border_crop)
+
+
+@warp_u8_offsets_rows.register_kernel("cuda")
+def _warp_u8_offsets_rows_cuda(frames_u8: torch.Tensor, rows: torch.Tensor,
+                               border_crop: float) -> torch.Tensor:
+    return _launch(frames_u8.contiguous(), rows.contiguous(), border_crop)
+
+
+@warp_u8_offsets_rows.register_fake
+def _warp_u8_offsets_rows_fake(frames_u8: torch.Tensor, rows: torch.Tensor,
+                               border_crop: float) -> torch.Tensor:
+    return frames_u8.new_empty(frames_u8.shape)
 
 
 def _check_grids(frames_u8: torch.Tensor, grids: torch.Tensor) -> None:

@@ -23,6 +23,7 @@ import torch
 from dvsg_tpu_torch import resolve_device
 from dvsg_tpu_torch.config import StabilizeConfig
 from dvsg_tpu_torch.parallel import dp
+from dvsg_tpu_torch.parallel import mesh as mesh_lib
 from dvsg_tpu_torch.pipeline import pathsmooth
 from dvsg_tpu_torch.pipeline.stabilize import (BehindFetch, build_model,
                                                initial_halo, put_frames)
@@ -101,24 +102,53 @@ def stabilize_multi(cfg: StabilizeConfig, params: dict,
     clip: a clip whose reader or writer throws mid-stream is marked failed
     (its partial output and written-frame count are kept as the resume
     point) and the other clips run to completion. Only a failure of every
-    clip raises. ``mesh`` (per-clip data parallelism over several cards) is
-    not ported yet and must be None.
+    clip raises.
+
+    ``mesh`` (parallel/mesh.py): per-clip data parallelism. The clip count
+    must divide over its ranks; each rank decodes, stabilizes and writes
+    its own contiguous N/n clips on the mesh's device (``device`` is not
+    read; the other ranks' readers and writers are not touched), and every
+    rank gets the whole batch's ``MultiClipResult``.
     """
     timer = timer or StageTimer()
     n = len(readers)
     if n != len(writers):
         raise ValueError(f"{n} readers but {len(writers)} writers")
-    if mesh is not None:
-        raise ValueError("mesh= (per-clip data parallelism over several "
-                         "cards) is not ported yet; pass mesh=None")
     pathsmooth.lag_reject(cfg, "the multi-clip batch driver")
-    t_chunk = cfg.chunk_frames
     h, w = readers[0].height, readers[0].width
     for r in readers:
         if (r.height, r.width) != (h, w):
             raise ValueError("all clips must share one resolution; got "
                              f"{(r.height, r.width)} vs {(h, w)}")
-    dev = resolve_device(device)
+    if mesh is None:
+        result = _stabilize_local(cfg, params, readers, writers, timer,
+                                  resolve_device(device))
+    else:
+        if n % mesh.size:
+            # Before any worker thread starts.
+            raise ValueError(
+                f"clip count {n} must be divisible by the mesh's "
+                f"{mesh.size} devices for per-clip data parallelism")
+        mine = mesh.shard(n, "clip count")
+        local = _stabilize_local(cfg, params, readers[mine], writers[mine],
+                                 timer, mesh.device)
+        parts = mesh_lib.all_gather_object(mesh, local)
+        result = MultiClipResult(
+            [c for p in parts for c in p.frames_written],
+            [e for p in parts for e in p.errors],
+            [c for p in parts for c in p.coverage_fallback_chunks])
+    if len(result.failed_clips) == n:
+        raise result.errors[0]
+    return result
+
+
+def _stabilize_local(cfg: StabilizeConfig, params: dict, readers: Sequence,
+                     writers: Sequence, timer: StageTimer,
+                     dev: torch.device) -> MultiClipResult:
+    """``stabilize_multi``'s work on one device, without its final raise."""
+    n = len(readers)
+    t_chunk = cfg.chunk_frames
+    h, w = readers[0].height, readers[0].width
     model = build_model(cfg.model, params, dev)
     fn = dp.batch_step(cfg)
     if cfg.path_smooth > 0:
@@ -191,10 +221,7 @@ def stabilize_multi(cfg: StabilizeConfig, params: dict,
             t.join()
     merged = [d if d is not None else e
               for d, e in zip(dec_errors, enc_errors)]
-    result = MultiClipResult(written, merged, [0] * n)
-    if len(result.failed_clips) == n:
-        raise merged[0]
-    return result
+    return MultiClipResult(written, merged, [0] * n)
 
 
 def _run_main_loop(t_chunk, n, h, w, fn, model, cfg, dev, timer, dec_qs,

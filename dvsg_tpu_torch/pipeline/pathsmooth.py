@@ -42,6 +42,7 @@ import torch
 
 from dvsg_tpu_torch.config import StabilizeConfig
 from dvsg_tpu_torch.ops.grouped import CHUNK_GROUP, in_groups
+from dvsg_tpu_torch.ops.resize import tensor_cache
 
 STATE_DIM = 4      # carried EMA state components: (x, y, θ, log-scale)
 N_UP, SPAN = 25, 1.5          # upsampled correlation: 25 samples, ±1.5 px
@@ -188,7 +189,7 @@ def _lag_taps_np(horizon: int, lag: int, window: int):
     return k_past, taps
 
 
-@functools.lru_cache(maxsize=256)
+@tensor_cache(maxsize=256)
 def _on(device: torch.device, name: str, *args) -> torch.Tensor:
     """Table ``name`` for ``args`` as a tensor on ``device``, built once.
 

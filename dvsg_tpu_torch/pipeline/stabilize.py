@@ -293,7 +293,8 @@ def drive_chunked_batch(fn, model: motion_cnn.MotionEstimator,
                         cfg: StabilizeConfig, clips_u8: np.ndarray,
                         fetch_clips: Optional[int] = None,
                         coverage_out: Optional[list] = None,
-                        initial_halos=None, return_halos: bool = False):
+                        initial_halos=None, return_halos: bool = False,
+                        device=None):
     """Drive a batched chunk step ``fn`` over an in-memory clip batch.
 
     The chunk/pad/dispatch/fetch loop shared by the clip-batch surfaces
@@ -313,9 +314,12 @@ def drive_chunked_batch(fn, model: motion_cnn.MotionEstimator,
     caller then feeds chunk-aligned segments), and ``return_halos`` also
     returns the final (B, ...) halos: ``(out, final_halos)``.
 
+    ``device``: where the step runs, for a step that holds no model (an
+    exported program, export.py); by default the model's device.
+
     clips_u8 (B, T_total, H, W, C) uint8 → (fetch_clips, T_total, ...).
     """
-    dev = _model_device(model)
+    dev = _model_device(model) if device is None else device
     b = clips_u8.shape[0]
     k = b if fetch_clips is None else fetch_clips
     if coverage_out is not None:

@@ -404,8 +404,10 @@ def test_multi_refusals(params):
         _multi(CFG, params, clips)
     with pytest.raises(ValueError, match="path_smooth_lag"):
         _multi(CFG.replace(**MODES["lag"]), params, clips[:1])
-    with pytest.raises(ValueError, match="mesh"):
-        _multi(CFG, params, clips[:1], mesh=object())
+    from dvsg_tpu_torch.parallel.mesh import Mesh
+    two = Mesh((2,), ("data",), 0, torch.device("cpu"))
+    with pytest.raises(ValueError, match="mesh's 2 devices"):
+        _multi(CFG, params, clips[:1], mesh=two)
 
 
 def test_failed_decode_is_isolated(params):

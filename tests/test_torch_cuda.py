@@ -482,3 +482,89 @@ def test_engine_and_multi_on_the_card_equal_single(dev):
     for w_, g, w in zip(writers, got, want):
         np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(np.concatenate(w_.chunks), w)
+
+
+# --- the registered offsets op, export and a world of one over NCCL ---------
+
+def test_registered_op_launches_the_kernel(dev):
+    """torch.ops.dvsg_torch.warp_u8_offsets_rows on the card is one kernel
+    launch, within 1 LSB of the plain version; an exported chunk step
+    launches it once per chunk and equals the live step bytewise."""
+    from dvsg_tpu_torch import export as export_lib
+    from dvsg_tpu_torch.config import StabilizeConfig
+    from dvsg_tpu_torch.pipeline import stabilize as st
+    rng = np.random.default_rng(9)
+    frames = torch.from_numpy(
+        rng.integers(0, 256, (4, 48, 64, 3), dtype=np.uint8)).to(dev)
+    offs = torch.from_numpy(rng.uniform(
+        -0.2, 0.2, (4, 8, 8, 2)).astype(np.float32)).to(dev)
+    rows = warp_wide.offset_rows(offs, 48)
+    before = warp_wide.LAUNCHES
+    got = torch.ops.dvsg_torch.warp_u8_offsets_rows(frames, rows, 0.05)
+    assert warp_wide.LAUNCHES == before + 1
+    want = warp_wide.warp_u8_offsets_plain(frames, offs, 0.05)
+    torch.cuda.synchronize()
+    assert int((got.to(torch.int16) - want.to(torch.int16)).abs().max()) <= 1
+
+    cfg, params, clip = _smooth_setup()
+    exp = export_lib.export_chunk_program(cfg, params, 40, 48, device=dev)
+    assert any("dvsg_torch.warp_u8_offsets_rows" in str(n.target)
+               for n in exp.program.graph.nodes)
+    chunk = torch.from_numpy(clip[:4]).to(dev)
+    model = st.build_model(cfg.model, params, dev)
+    halo = st.initial_halo(cfg, clip[0], dev)
+    state = torch.zeros(4, device=dev)
+    with torch.inference_mode():
+        live = st.stabilize_chunk_smooth_impl(cfg, model, chunk, halo, state)
+        before = warp_wide.LAUNCHES
+        out = exp.program.module()(chunk, halo, state)
+        assert warp_wide.LAUNCHES == before + 1
+    for a, b in zip(out, live):
+        assert torch.equal(a, b)
+
+
+def test_world_of_one_over_nccl(dev, tmp_path):
+    """A one-rank NCCL group on the card: the DP train step equals
+    train_step to the last bit, the sharded and temporal stabilizers equal
+    the single-clip path bytewise."""
+    import torch.distributed as dist
+    from dvsg_tpu_torch.config import StabilizeConfig, TrainConfig
+    from dvsg_tpu_torch.parallel import dp, dryrun
+    from dvsg_tpu_torch.parallel import mesh as mesh_lib
+    from dvsg_tpu_torch.parallel.temporal import TemporalShardedStabilizer
+    from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
+    from dvsg_tpu_torch.train import loop
+    dryrun.join_group(0, 1, str(tmp_path / "store"), "nccl")
+    try:
+        mesh = mesh_lib.make_mesh(device="cuda:0")
+        assert mesh.backend == "nccl" and mesh.size == 1
+        cfg, params, clip = _smooth_setup()
+        tcfg = TrainConfig(model=cfg.model, batch_size=4, steps=4,
+                           warmup_steps=1)
+        one = loop.build_state(tcfg, params, dev)
+        state = dp.replicate_state(loop.build_state(tcfg, params, dev), mesh)
+        step_fn, shard_batch = dp.make_dp_train_step(tcfg, mesh)
+        # cuDNN's default backward sums in a run-dependent order.
+        torch.backends.cudnn.deterministic = True
+        try:
+            for step in range(2):
+                want = loop.train_step(one, loop.step_generator(0, step),
+                                       tcfg)
+                got = step_fn(state, shard_batch(loop.step_generator(0,
+                                                                     step)))
+                assert float(got["total"]) == float(want["total"])
+        finally:
+            torch.backends.cudnn.deterministic = False
+        for a, b in zip(one.params.values(), state.params.values()):
+            assert torch.equal(a, b)
+        for kw in ({}, dict(path_smooth_lag=2)):
+            c = cfg.replace(**kw)
+            out = dp.ShardedClipStabilizer(c, params, mesh).stabilize_clips(
+                clip[None])
+            np.testing.assert_array_equal(
+                out[0], Stabilizer(c, params, device=dev).stabilize_clip(clip))
+        out = TemporalShardedStabilizer(cfg, params, mesh).stabilize_clip(clip)
+        np.testing.assert_array_equal(
+            out, Stabilizer(cfg, params, device=dev).stabilize_clip(clip))
+    finally:
+        dist.destroy_process_group()

@@ -47,7 +47,10 @@ def test_port_imports_no_jax():
     assert {f"dvsg_tpu_torch.pipeline.{m}" for m in
             ("pathsmooth", "autocrop", "online", "overlap", "batching",
              "multiclip")} <= set(mods)
-    assert {"dvsg_tpu_torch.parallel.dp", "dvsg_tpu_torch.serve"} <= set(mods)
+    assert {"dvsg_tpu_torch.parallel.dp", "dvsg_tpu_torch.serve",
+            "dvsg_tpu_torch.parallel.mesh", "dvsg_tpu_torch.parallel.temporal",
+            "dvsg_tpu_torch.parallel.dryrun", "dvsg_tpu_torch.export"
+            } <= set(mods)
     res = subprocess.run([sys.executable, "-c", _PROBE.format(mods=mods)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)

@@ -1,0 +1,191 @@
+"""Multi-rank cases of the port's parallel tests, run in spawned gloo ranks
+on the CPU (parallel/dryrun.py::run_ranks).
+
+``spawn(case, n, tmp_path, payload)`` starts ``n`` ranks over a file store
+under ``tmp_path`` (never a TCP port: several test workers run at once),
+hands each the pickled ``payload``, runs ``CASES[case](rank, payload)`` and
+returns every rank's result in rank order. A rank that raises fails the
+call; a hang is killed after the time limit. This module imports no JAX:
+the ranks load it by name, and only torch belongs there.
+"""
+
+import os
+import pickle
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from dvsg_tpu_torch.config import TrainConfig
+from dvsg_tpu_torch.parallel import dp, dryrun
+from dvsg_tpu_torch.parallel import mesh as mesh_lib
+from dvsg_tpu_torch.parallel import temporal
+from dvsg_tpu_torch.train import loop
+
+MODES = {"plain": {}, "causal": dict(path_smooth=8),
+         "lag": dict(path_smooth=8, path_smooth_lag=2)}
+RANK_TIMEOUT_S = 120.0          # a collective that waits longer raises
+SPAWN_TIMEOUT_S = 240.0         # the whole spawn
+
+
+def _meshes():
+    """The world's mesh and a mesh of its first two ranks."""
+    world = mesh_lib.make_mesh(device="cpu")
+    two = world if world.size == 2 else mesh_lib.make_mesh((2,),
+                                                           device="cpu")
+    return {str(world.size): world, "2": two}
+
+
+def _refusal(fn) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    raise AssertionError("not refused")
+
+
+def sharded_cases(rank, p):
+    """ShardedClipStabilizer in every mode over 2 and n ranks, DP train
+    steps over both meshes, and the refusals."""
+    res = {}
+    meshes = _meshes()
+    res["mesh"] = {k: (m.shape, m.rank, m.backend, m.device.type)
+                   for k, m in meshes.items()}
+    for name, m in meshes.items():
+        if m.rank is None:
+            continue
+        for mode, kw in MODES.items():
+            cfg = p["cfg"].replace(**kw)
+            res[f"{name}/{mode}"] = dp.ShardedClipStabilizer(
+                cfg, p["params"], m).stabilize_clips(p["clips"])
+        tcfg = p["tcfg"]
+        state = loop.build_state(tcfg, p["tparams"], "cpu")
+        state = dp.replicate_state(state, m)
+        step_fn, _ = dp.make_dp_train_step(tcfg, m)
+        rows = m.shard(tcfg.batch_size)
+        losses = [float(step_fn(state, tuple(x[rows] for x in d))["total"])
+                  for d in p["draws"]]
+        res[f"{name}/dp"] = (losses, {k: v.numpy().copy()
+                                      for k, v in state.params.items()})
+    world = meshes[max(meshes, key=int)]
+    res["uneven"] = _refusal(lambda: dp.ShardedClipStabilizer(
+        p["cfg"], p["params"], world).stabilize_clips(
+            p["clips"][:world.size + 2]))
+    res["dp_batch"] = _refusal(lambda: dp.make_dp_train_step(
+        TrainConfig(model=p["tcfg"].model, batch_size=world.size + 2),
+        world))
+    return res
+
+
+def temporal_cases(rank, p):
+    """TemporalShardedStabilizer over 2 and n ranks: plain and causal on a
+    clip with a partial last chunk, strength 0, and the refusals."""
+    res = {}
+    for name, m in _meshes().items():
+        if m.rank is None:
+            continue
+        for mode in ("plain", "causal"):
+            cfg = p["cfg"].replace(chunk_frames=2 * m.size, **MODES[mode])
+            res[f"{name}/{mode}"] = temporal.TemporalShardedStabilizer(
+                cfg, p["params"], m).stabilize_clip(p["clip"])
+        res[f"{name}/strength0"] = temporal.TemporalShardedStabilizer(
+            p["cfg"].replace(chunk_frames=2 * m.size, strength=0.0),
+            p["params"], m).stabilize_clip(p["clip"])
+        res[f"{name}/lag"] = _refusal(
+            lambda: temporal.TemporalShardedStabilizer(
+                p["cfg"].replace(chunk_frames=2 * m.size, **MODES["lag"]),
+                p["params"], m))
+        res[f"{name}/indivisible"] = _refusal(
+            lambda: temporal.TemporalShardedStabilizer(
+                p["cfg"].replace(chunk_frames=2 * m.size + 1), p["params"],
+                m))
+        res[f"{name}/short"] = _refusal(
+            lambda: temporal.TemporalShardedStabilizer(
+                p["cfg"].replace(chunk_frames=m.size), p["params"], m))
+    return res
+
+
+class MemReader:
+    def __init__(self, frames):
+        self.frames, self.pos = frames, 0
+        self.height, self.width = frames.shape[1:3]
+
+    def read_batch(self, n):
+        out = self.frames[self.pos:self.pos + n]
+        self.pos += len(out)
+        return out
+
+
+class MemWriter:
+    def __init__(self):
+        self.parts = []
+
+    def write_batch(self, frames):
+        self.parts.append(np.array(frames))
+
+    @property
+    def frames(self):
+        return np.concatenate(self.parts) if self.parts else None
+
+
+def multi_cases(rank, p):
+    """stabilize_multi(mesh=) over the world, and the CLI's
+    stabilize-batch as torchrun would start it on every rank."""
+    from dvsg_tpu_torch import cli
+    from dvsg_tpu_torch.pipeline.multiclip import stabilize_multi
+    m = mesh_lib.make_mesh(device="cpu")
+    res = {}
+    for mode in ("plain", "causal"):
+        writers = [MemWriter() for _ in p["clips"]]
+        r = stabilize_multi(p["cfg"].replace(**MODES[mode]), p["params"],
+                            [MemReader(c) for c in p["clips"]], writers,
+                            mesh=m)
+        res[mode] = ([w.frames for w in writers], r.frames_written,
+                     r.errors)
+    res["cli"] = cli.main(p["argv"])
+    # A batch artifact cut for the mesh: every rank exports its shard's
+    # step, loads it and runs its shard; every rank gets the whole batch.
+    from dvsg_tpu_torch import export as export_lib
+    clips = np.stack([c[:4] for c in p["clips"]])
+    path = os.path.join(p["dir"], f"batch{rank}.dvsgt")
+    export_lib.save_exported(export_lib.export_batch_program(
+        p["cfg"], p["params"], len(clips), *clips.shape[2:4], mesh=m),
+        path, p["cfg"])
+    loaded = export_lib.load_exported(path, mesh=m)
+    res["artifact"] = (loaded.meta["nr_devices"], loaded.n_clips,
+                       loaded.stabilize_clips(clips))
+    return res
+
+
+CASES = {"sharded": sharded_cases, "temporal": temporal_cases,
+         "multi": multi_cases}
+
+
+def _rank(rank, n, store, case, payload_path, out_dir):
+    torch.set_num_threads(1)
+    dryrun.join_group(rank, n, store, "gloo", timeout_s=RANK_TIMEOUT_S)
+    try:
+        with open(payload_path, "rb") as f:
+            payload = pickle.load(f)
+        res = CASES[case](rank, payload)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(case, n, tmp_path, payload):
+    """Every rank's result of ``CASES[case]`` over ``n`` gloo ranks."""
+    d = str(tmp_path)
+    os.makedirs(d, exist_ok=True)
+    payload_path = os.path.join(d, "payload.pkl")
+    with open(payload_path, "wb") as f:
+        pickle.dump(payload, f)
+    dryrun.run_ranks(_rank, n, args=(n, os.path.join(d, "store"), case,
+                                     payload_path, d),
+                     timeout_s=SPAWN_TIMEOUT_S)
+    out = []
+    for r in range(n):
+        with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
