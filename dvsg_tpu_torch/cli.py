@@ -22,11 +22,14 @@ With no ``--checkpoint``/``--preset`` and no model flags, ``stabilize``,
 ``stabilize-batch`` and ``eval`` use the committed ``fast`` pretrained
 model; model flags without a checkpoint select an untrained (identity)
 model. ``--checkpoint`` takes a training checkpoint directory or an
-``.npz``. ``export`` writes the port's own artifact (export.py), which
-``stabilize --artifact`` runs. The flags of the reference CLI that are not
-ported yet are accepted by the parser and refused with exit code 2:
-``--profile-dir``, ``--dtype bfloat16``, and ``--warp-impl pallas|lax``
-(the port has one warp route).
+``.npz``. ``--dtype bfloat16`` runs the CNN's trunk in bf16 (its heads stay
+f32); on a loaded checkpoint it re-applies onto the checkpoint's config,
+and it is no architecture flag (the committed weights run in either
+dtype). ``stabilize --profile-dir DIR`` writes a ``torch.profiler`` trace
+of the run there and prints its top ops and the device's idle share
+(utils/profiling.py). ``export`` writes the port's own artifact
+(export.py), which ``stabilize --artifact`` runs. ``--warp-impl
+pallas|lax`` is refused with exit code 2: the port has one warp route.
 """
 
 from __future__ import annotations
@@ -43,26 +46,9 @@ _CHECKPOINT_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "checkpoints")
 
-# Reference flags this port refuses for now: (flag, argparse kwargs).
-_UNPORTED = (
-    ("--profile-dir", dict()),
-)
-
-
 def _err(msg: str) -> int:
     print(f"ERROR: {msg}", file=sys.stderr)
     return 2
-
-
-def _add_unported(p: argparse.ArgumentParser, flags) -> None:
-    for flag, kw in flags:
-        p.add_argument(flag, help=argparse.SUPPRESS, **kw)
-
-
-def _refused(args, flags) -> list:
-    """The unported flags the caller gave."""
-    return [flag for flag, _ in flags
-            if getattr(args, flag[2:].replace("-", "_")) is not None]
 
 
 # ModelConfig-matching defaults; the parser uses None sentinels so a run can
@@ -81,8 +67,7 @@ def _add_model_args(p: argparse.ArgumentParser) -> None:
                    metavar=("GH", "GW"),
                    help="coarse control grid (default 16 16)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
-                   default=None, help="CNN compute dtype (default float32; "
-                                      "bfloat16 is not ported yet)")
+                   default=None, help="CNN compute dtype (default float32)")
 
 
 def _model_cfg(args):
@@ -95,8 +80,18 @@ def _model_cfg(args):
 
 
 def _custom_arch(args) -> bool:
+    # --dtype is a compute knob, not architecture: it never invalidates
+    # checkpoint weights (it is re-applied onto any loaded config instead).
     return any(getattr(args, k, None) is not None
                for k in _MODEL_ARG_DEFAULTS if k != "dtype")
+
+
+def _apply_dtype(mcfg, args):
+    """Fold an explicit --dtype onto a loaded checkpoint's config."""
+    if getattr(args, "dtype", None) and args.dtype != mcfg.dtype:
+        import dataclasses
+        mcfg = dataclasses.replace(mcfg, dtype=args.dtype)
+    return mcfg
 
 
 def _load_any_checkpoint(path: str):
@@ -127,9 +122,6 @@ def _load_model(args):
     --checkpoint (directory or .npz), else the --preset, else with model
     flags an untrained identity model, else the committed fast model.
     None, with the message printed, where they select nothing loadable."""
-    if args.dtype not in (None, "float32"):
-        _err(f"--dtype {args.dtype}: not ported yet (float32 only)")
-        return None
     if args.checkpoint and args.preset:
         _err("pass --checkpoint or --preset, not both")
         return None
@@ -138,7 +130,8 @@ def _load_model(args):
         if not os.path.exists(path):
             _err(f"checkpoint {path} does not exist")
             return None
-        return _load_any_checkpoint(path)
+        params, mcfg = _load_any_checkpoint(path)
+        return params, _apply_dtype(mcfg, args)
     import torch
     from dvsg_tpu_torch.models import motion_cnn
     mcfg = _model_cfg(args)
@@ -327,14 +320,13 @@ def stabilize_main(argv=None) -> int:
                    help="run an exported program (python -m dvsg_tpu_torch "
                         "export) instead of a checkpoint: weights, chunk "
                         "size, strength, crop and smoothing are baked in")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the stream loop "
+                        "into this dir and print an op summary and the "
+                        "device's idle share")
     _add_common_args(p)
-    _add_unported(p, _UNPORTED)
     args = p.parse_args(argv)
 
-    given = _refused(args, _UNPORTED)
-    if given:
-        return _err(f"{', '.join(given)}: not ported yet to the PyTorch "
-                    "port (use python -m dvsg_tpu.cli)")
     if args.overlap and args.resume_dir:
         return _err("--overlap has no resume support; drop --overlap for a "
                     "resumable run (or --resume-dir for an overlapped one)")
@@ -347,6 +339,7 @@ def stabilize_main(argv=None) -> int:
     from dvsg_tpu_torch.config import StabilizeConfig
     from dvsg_tpu_torch.pipeline import pathsmooth
     from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
+    from dvsg_tpu_torch.utils import profiling
     from dvsg_tpu_torch.utils.metrics import StageTimer, write_metrics_jsonl
 
     if args.artifact:
@@ -389,18 +382,21 @@ def stabilize_main(argv=None) -> int:
     timer = StageTimer()
     t0 = time.perf_counter()
     try:
-        if args.overlap:
-            from dvsg_tpu_torch.pipeline.overlap import (
-                stabilize_stream_overlapped)
-            n = stabilize_stream_overlapped(stab, reader, writer,
-                                            timer=timer)
-        else:
-            n = stab.stabilize_stream(reader, writer, timer=timer,
-                                      resume_dir=args.resume_dir)
+        with profiling.trace(args.profile_dir, stab.device):
+            if args.overlap:
+                from dvsg_tpu_torch.pipeline.overlap import (
+                    stabilize_stream_overlapped)
+                n = stabilize_stream_overlapped(stab, reader, writer,
+                                                timer=timer)
+            else:
+                n = stab.stabilize_stream(reader, writer, timer=timer,
+                                          resume_dir=args.resume_dir)
     finally:
         reader.close()
         writer.close()
     wall = time.perf_counter() - t0
+    if args.profile_dir:
+        _print_profile(args.profile_dir)
     fps = n / wall if wall > 0 else 0.0
     print(f"stabilized {n} frames at {reader.width}x{reader.height} on "
           f"{stab.device} in {wall:.2f}s ({fps:.1f} fps)")
@@ -413,6 +409,25 @@ def stabilize_main(argv=None) -> int:
             "coverage_fallback_chunks": stab.coverage_fallbacks,
             "chunks": stab.chunks_seen})
     return 0
+
+
+def _print_profile(trace_dir: str) -> None:
+    """The reference's ``[profile]`` lines: the eight ops of the largest
+    total time, then the fused warp (B1) where it is not among them, then
+    the device's busy and idle share (a card's trace only)."""
+    from dvsg_tpu_torch.utils import profiling
+    summary = profiling.summarize_trace(trace_dir)
+    names = list(summary)[:8]
+    names += [n for n in summary if "warp_u8_offsets" in n
+              and n not in names]
+    for name in names:
+        rec = summary[name]
+        print(f"  [profile] {rec['mean_ms']:8.2f} ms x{rec['count']:3d} "
+              f"{name[:60]}")
+    busy = profiling.device_busy_stats(trace_dir)
+    if busy is not None:
+        print(f"  [profile] device busy {busy['busy_ms']:.2f} of "
+              f"{busy['span_ms']:.2f} ms, idle {busy['idle_pct']:.1f}%")
 
 
 def _load_artifact(args):
@@ -439,6 +454,7 @@ def _load_artifact(args):
               ("--chunk-frames", args.chunk_frames is not None),
               ("--warp-impl", args.warp_impl is not None),
               ("--path-smooth", args.path_smooth != 0),
+              ("--dtype", args.dtype is not None),
               ("--path-smooth-lag", args.path_smooth_lag != 0)) if given]
     if baked:
         _err(f"{', '.join(baked)}: baked into the artifact at export time; "
@@ -618,8 +634,6 @@ def train_main(argv=None) -> int:
                    help="bank size when --data is given (random crops)")
     _add_model_args(p)
     args = p.parse_args(argv)
-    if args.dtype not in (None, "float32"):
-        return _err(f"--dtype {args.dtype}: not ported yet (float32 only)")
 
     import torch
 

@@ -13,8 +13,9 @@ package's ``.dvsgx`` files are not)::
 
     b"DVSGT1\\n" | u32 header_len | header JSON (utf-8) | torch.export.save bytes
 
-The header records the config, the input and output shapes and types, the
-device type the program was traced on, the clip ranks it was cut for
+The header records the config (the model's ``dtype`` and ``arch``
+among it, which ``load_exported`` rebuilds), the input and output shapes
+and types, the device type the program was traced on, the clip ranks it was cut for
 (``nr_devices``) and the torch version, and is checked at load time. The
 calling convention is the JAX package's:
 

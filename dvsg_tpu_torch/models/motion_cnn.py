@@ -1,18 +1,46 @@
-"""Motion-estimation CNN (corr arch): sliding frame window → coarse offsets.
+"""Motion-estimation CNN: sliding frame window → coarse offsets.
 
-A siamese per-frame encoder (stem conv + stride-2 ResBlock pyramid down to
-the coarse grid), PWC-style local correlation volumes of every window
-frame against the last one, and a small float32 regression head.
+Two architectures (``cfg.arch``), as in the reference:
+
+* ``corr``: a siamese per-frame encoder (stem conv + stride-2 ResBlock
+  pyramid down to the coarse grid), PWC-style local correlation volumes of
+  every window frame against the last one, and a small float32 regression
+  head;
+* ``stacked``: the same trunk over the channel-stacked window
+  (``window * channels`` channels), then a float32 ``head_conv`` → GELU →
+  ``head_out``.
 
 Parameter names follow the reference checkpoints' paths
 (``encoder.stem``, ``encoder.down{l}``, ``encoder.res{l}_{b}.conv1``,
-``head_conv1``, ...; see utils/checkpoint.py). Three details of the
-reference that differ from PyTorch defaults:
+``head_conv1``, ...; the stacked arch's trunk sits at the top: ``stem``,
+``down{l}``, ``res{l}_{b}``, ``head_conv``, ``head_out``; see
+utils/checkpoint.py). Three details of the reference that differ from
+PyTorch defaults:
 
 * ``SAME`` padding pads a stride-2 3×3 conv on an even input by (0, 1),
   not (1, 1): ``SameConv2d`` pads as the reference does;
 * its GELU is the tanh approximation;
 * its GroupNorm has epsilon 1e-6 (8 groups here).
+
+With ``cfg.dtype == "bfloat16"`` the trunk computes in bf16 while the
+parameters stay float32, and rounds where the reference (flax on XLA)
+rounds, which is not where PyTorch's fused bf16 ops round:
+
+* a conv rounds its result to bf16, then adds the bias in bf16;
+* GELU is the tanh formula op by op, each op rounded, its constants
+  rounded to bf16 first (a weakly typed constant takes the array's type);
+* GroupNorm takes its statistics and normalizes in f32, rounding once;
+  it normalizes the conv's f32 sum with its bias, as XLA's fusion does;
+* a correlation's products and sum are f32, rounded once, then scaled;
+* the heads are f32; the stacked head reads the trunk's last GELU
+  unrounded (XLA drops the rounding before the reference's cast to f32).
+
+Under autograd the backward rounds where JAX's gradient, compiled by XLA,
+does: GELU's gradient is its JVP transposed op by op; a conv's kernel
+gradient stays f32 and its bias gradient is a sequential bf16 sum; each
+cast of a bf16 value to f32 rounds its own share of the gradient; the
+correlation's gradient sums its shifts one by one in bf16 (autograd
+functions whose forward is the plain computation).
 
 Public functions keep the reference's NHWC layouts.
 """
@@ -29,10 +57,56 @@ from dvsg_tpu_torch.config import ModelConfig
 
 GN_GROUPS = 8
 GN_EPS = 1e-6
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_ARCHS = ("corr", "stacked")
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")
+def _bf16(v: float) -> float:
+    """``v`` rounded to bf16: what a weakly typed constant becomes against
+    a bf16 array in the reference."""
+    return float(torch.tensor(v, dtype=torch.bfloat16))
+
+
+_GELU_CUBE = _bf16(0.044715)
+_GELU_SQRT_2_PI = _bf16(math.sqrt(2.0 / math.pi))
+
+
+def _gelu_gate_bf16(x: torch.Tensor) -> tuple:
+    """(x², tanh of the inner term, the gate 0.5 (1 + tanh)) of
+    jax.nn.gelu's formula in its order, each op rounded to bf16."""
+    x2 = x * x
+    t = torch.tanh(_GELU_SQRT_2_PI * (x + _GELU_CUBE * (x2 * x)))
+    return x2, t, 0.5 * (1.0 + t)
+
+
+class _GeluBf16(torch.autograd.Function):
+    """jax.nn.gelu on bf16 ``x`` and the gradient JAX derives for it (its
+    JVP transposed, each op rounded to bf16, in the order of XLA's fusion).
+    With ``f32_out`` the last product stays f32: where the reference casts
+    a GELU's bf16 result to f32, XLA drops that rounding."""
+
+    @staticmethod
+    def forward(ctx, x, f32_out):
+        ctx.save_for_backward(x)
+        h = _gelu_gate_bf16(x)[2]
+        return x.float() * h.float() if f32_out else x * h
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        g = g.to(x.dtype)
+        x2, t, h = _gelu_gate_bf16(x)
+        q = ((x * g) * 0.5) * (1.0 - t)
+        ga = (q + q * t) * _GELU_SQRT_2_PI      # through tanh, then sqrt(2/pi)
+        return (g * h + ga) + (ga * _GELU_CUBE) * (x2 * 3.0), None
+
+
+def gelu(x: torch.Tensor, f32_out: bool = False) -> torch.Tensor:
+    """The reference's GELU (tanh form). On bf16 ``x`` it rounds where
+    XLA does; ``f32_out`` returns the last product unrounded, in f32."""
+    if x.dtype != torch.bfloat16:
+        return F.gelu(x, approximate="tanh")
+    return _GeluBf16.apply(x, f32_out)
 
 
 def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
@@ -43,23 +117,125 @@ def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _bf16_valued(w: torch.Tensor) -> torch.Tensor:
+    """``w`` rounded to bf16 but kept f32, its gradient passed through in
+    f32: XLA computes a bf16 conv's kernel gradient in f32 and drops the
+    round trip through bf16 that the kernel's cast would add."""
+    return w + (w.to(torch.bfloat16).float() - w).detach()
+
+
+class _CastToF32(torch.autograd.Function):
+    """One of the reference's casts of a bf16 value to f32, applied to the
+    f32 sum ``y`` that XLA keeps in its place: the value is ``y``, or
+    ``y`` rounded to bf16 with ``rounded``; the gradient is rounded to
+    bf16, since each cast's transpose rounds its own share."""
+
+    @staticmethod
+    def forward(ctx, y, rounded):
+        return y.to(torch.bfloat16).float() if rounded else y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).float(), None
+
+
+def _bias_grad_bf16(g: torch.Tensor) -> torch.Tensor:
+    """The bias gradient of a bf16 bias add, NCHW ``g`` → (C,) f32.
+
+    XLA's CPU backend (the reference on the CPU) sums a bf16 reduction
+    sequentially in bf16, rows in NHWC order, rounding after every add;
+    that is copied here. On the card the sum runs in f32 and rounds once
+    (a serial scan there would cost one launch per row)."""
+    if g.is_cuda:
+        return g.sum(dim=(0, 2, 3)).float()
+    acc = torch.zeros(g.shape[1], dtype=g.dtype)
+    for row in g.permute(0, 2, 3, 1).reshape(-1, g.shape[1]):
+        acc = acc + row
+    return acc.float()
+
+
+class _BiasAddBf16(torch.autograd.Function):
+    """``y + bias`` of a bf16 conv result ``y`` and the bias cast to bf16,
+    rounded to bf16, or left f32 with ``f32_out`` (XLA keeps the sum f32
+    where it fuses it into a GroupNorm's normalize). The gradient rounds
+    to bf16, as the reference's bf16 add does, and the bias's is
+    ``_bias_grad_bf16``."""
+
+    @staticmethod
+    def forward(ctx, y, bias, f32_out):
+        b = bias.to(y.dtype)[:, None, None]
+        return y.float() + b.float() if f32_out else y + b
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.bfloat16)
+        return g, _bias_grad_bf16(g), None
+
+
 class SameConv2d(nn.Conv2d):
-    """Conv2d (NCHW) with the reference's ``padding="SAME"``."""
+    """Conv2d (NCHW) with the reference's ``padding="SAME"``; on bf16
+    input the bf16 kernel's conv is rounded, then the bias is added in
+    bf16."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
         super().__init__(cin, cout, k, stride=stride, padding=0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _pads(self, x: torch.Tensor) -> tuple:
         k, s = self.kernel_size[0], self.stride[0]
-        ph = same_pads(x.shape[-2], k, s)
-        pw = same_pads(x.shape[-1], k, s)
+        return same_pads(x.shape[-2], k, s), same_pads(x.shape[-1], k, s)
+
+    def unbiased_bf16(self, x: torch.Tensor) -> torch.Tensor:
+        """The bf16 conv without its bias: f32 products and sums of the
+        bf16 input and kernel, rounded once to bf16. On the CPU it runs as
+        an f32 conv, so that the kernel's gradient stays f32 as XLA's does
+        (a bf16 ``F.conv2d`` rounds it to bf16)."""
+        ph, pw = self._pads(x)
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        if x.is_cuda:           # cuDNN: f32 accumulation, one rounding
+            return F.conv2d(x, self.weight.to(x.dtype), None, self.stride[0])
+        return F.conv2d(x.float(), _bf16_valued(self.weight), None,
+                        self.stride[0]).to(x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return _BiasAddBf16.apply(self.unbiased_bf16(x), self.bias,
+                          False)
+        ph, pw = self._pads(x)
         if ph[0] == ph[1] and pw[0] == pw[1]:
-            return F.conv2d(x, self.weight, self.bias, s, (ph[0], pw[0]))
+            return F.conv2d(x, self.weight, self.bias, self.stride[0],
+                            (ph[0], pw[0]))
         return super().forward(F.pad(x, (pw[0], pw[1], ph[0], ph[1])))
 
 
 def _group_norm(c: int) -> nn.GroupNorm:
     return nn.GroupNorm(GN_GROUPS, c, eps=GN_EPS)
+
+
+def conv_norm(conv: SameConv2d, norm: nn.GroupNorm, x: torch.Tensor
+              ) -> torch.Tensor:
+    """``norm(conv(x))``; on bf16 ``x`` as the reference computes it:
+    flax's f32 statistics (mean and E[x²] − mean², clamped at 0) of the
+    bf16 conv output, then f32 normalize, scale and shift, one rounding to
+    bf16. XLA fuses the conv's bias add into the normalize and keeps that
+    sum in f32 there (the statistics read it rounded), so this does too.
+    The statistics and the normalize each cast the input to f32, so each
+    path's share of its gradient is rounded to bf16 before they add."""
+    if x.dtype != torch.bfloat16:
+        return norm(conv(x))
+    y = _BiasAddBf16.apply(conv.unbiased_bf16(x), conv.bias, True)
+    b, c = y.shape[:2]
+    grp = norm.num_groups
+    g = _CastToF32.apply(y, True).reshape(b, grp, -1)
+    mean = g.mean(dim=-1, keepdim=True)
+    var = torch.clamp((g * g).mean(dim=-1, keepdim=True) - mean * mean,
+                      min=0.0)
+    y = _CastToF32.apply(y, False).reshape(b, grp, c // grp,
+                                             *y.shape[2:])
+    y = y - mean.reshape(b, grp, 1, 1, 1)
+    y = y * (torch.rsqrt(var + norm.eps).reshape(b, grp, 1, 1, 1)
+             * norm.weight.reshape(grp, c // grp, 1, 1))
+    y = y.reshape(b, c, *y.shape[3:]) + norm.bias.reshape(c, 1, 1)
+    return y.to(x.dtype)
 
 
 class ResBlock(nn.Module):
@@ -70,10 +246,11 @@ class ResBlock(nn.Module):
         self.conv2 = SameConv2d(features, features, 3)
         self.gn2 = _group_norm(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = gelu(self.gn1(self.conv1(x)))
-        h = self.gn2(self.conv2(h))
-        return gelu(x + h)
+    def forward(self, x: torch.Tensor, f32_out: bool = False
+                ) -> torch.Tensor:
+        h = gelu(conv_norm(self.conv1, self.gn1, x))
+        h = conv_norm(self.conv2, self.gn2, h)
+        return gelu(x + h, f32_out)
 
 
 def pyramid_levels(cfg: ModelConfig) -> int:
@@ -92,30 +269,53 @@ def pyramid_levels(cfg: ModelConfig) -> int:
     return level
 
 
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    if cfg.dtype not in _DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got "
+                         f"{cfg.dtype!r}")
+    return _DTYPES[cfg.dtype]
+
+
+def _add_trunk(mod: nn.Module, cfg: ModelConfig, cin: int) -> int:
+    """Register the reference's ``_stem_pyramid`` (``stem``, ``down{l}``,
+    ``res{l}_{b}``) on ``mod``; returns its output width."""
+    feats = cfg.base_features
+    mod.stem = SameConv2d(cin, feats, 7)
+    for level in range(pyramid_levels(cfg)):
+        nxt = min(feats * 2, 256)
+        mod.add_module(f"down{level}", SameConv2d(feats, nxt, 3, 2))
+        for b in range(cfg.blocks_per_level):
+            mod.add_module(f"res{level}_{b}", ResBlock(nxt))
+        feats = nxt
+    return feats
+
+
+def _trunk(mod: nn.Module, cfg: ModelConfig, x: torch.Tensor,
+           f32_out: bool = False) -> torch.Tensor:
+    """The trunk registered by ``_add_trunk``, in the compute dtype. With
+    ``f32_out`` its last GELU's product comes back unrounded in f32: the
+    stacked head casts the trunk to f32, and XLA drops that rounding."""
+    levels, blocks = pyramid_levels(cfg), cfg.blocks_per_level
+    x = gelu(mod.stem(x.to(compute_dtype(cfg))), f32_out and levels == 0)
+    for level in range(levels):
+        last = f32_out and level == levels - 1
+        x = gelu(getattr(mod, f"down{level}")(x), last and blocks == 0)
+        for b in range(blocks):
+            x = getattr(mod, f"res{level}_{b}")(x, last and b == blocks - 1)
+    return x
+
+
 class FrameEncoder(nn.Module):
-    """Per-frame encoder: NCHW (B, C, Hm, Wm) → (B, F, gh, gw)."""
+    """Per-frame encoder: NCHW (B, C, Hm, Wm) → (B, F, gh, gw), in the
+    compute dtype."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        feats = cfg.base_features
-        self.stem = SameConv2d(cfg.channels, feats, 7)
-        self.n_levels = pyramid_levels(cfg)
-        self.blocks_per_level = cfg.blocks_per_level
-        for level in range(self.n_levels):
-            nxt = min(feats * 2, 256)
-            self.add_module(f"down{level}", SameConv2d(feats, nxt, 3, 2))
-            for b in range(cfg.blocks_per_level):
-                self.add_module(f"res{level}_{b}", ResBlock(nxt))
-            feats = nxt
-        self.out_features = feats
+        self.cfg = cfg
+        self.out_features = _add_trunk(self, cfg, cfg.channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = gelu(self.stem(x))
-        for level in range(self.n_levels):
-            x = gelu(getattr(self, f"down{level}")(x))
-            for b in range(self.blocks_per_level):
-                x = getattr(self, f"res{level}_{b}")(x)
-        return x
+        return _trunk(self, self.cfg, x)
 
 
 def correlation_volume(ref: torch.Tensor, other: torch.Tensor,
@@ -123,28 +323,74 @@ def correlation_volume(ref: torch.Tensor, other: torch.Tensor,
     """Local cost volumes, NCHW: ref (B, F, gh, gw) against each of
     other (B, K, F, gh, gw) → (B, K, (2r+1)^2, gh, gw). Channel
     dy * (2r+1) + dx holds sum_f ref * other[shifted by (dy - r, dx - r)]
-    * F^-0.5, with ``other`` zero-padded by ``radius``."""
+    * F^-0.5, with ``other`` zero-padded by ``radius``. On bf16 features
+    the products and sum are f32, rounded once, then scaled in bf16."""
     f, gh, gw = ref.shape[-3:]
     k = 2 * radius + 1
+    scale = float(f) ** -0.5
+    low = ref.dtype == torch.bfloat16
     pad = F.pad(other, (radius, radius, radius, radius))
     ref = ref[:, None]
+    if low:
+        ref, pad = ref.float(), pad.float()
     vols = [(ref * pad[..., dy:dy + gh, dx:dx + gw]).sum(dim=2)
             for dy in range(k) for dx in range(k)]
-    return torch.stack(vols, dim=2) * (float(f) ** -0.5)
+    if low:
+        return torch.stack(vols, dim=2).to(torch.bfloat16) * _bf16(scale)
+    return torch.stack(vols, dim=2) * scale
+
+
+class _CorrInputBf16(torch.autograd.Function):
+    """The corr head's bf16 input: ``correlation_volume`` of ``ref``
+    (B, F, gh, gw) against each of ``others`` (B, K, F, gh, gw), then
+    ``ref``, on channels. Its gradient is the one JAX derives, each op
+    rounded to bf16 and summed in the order of XLA's fusion: each frame's
+    shifts last to first, and the ref's share from its concat share on,
+    frames last to first."""
+
+    @staticmethod
+    def forward(ctx, ref, others, radius):
+        ctx.save_for_backward(ref, others)
+        ctx.radius = radius
+        vols = correlation_volume(ref, others, radius)
+        return torch.cat([vols.flatten(1, 2), ref], dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        ref, others = ctx.saved_tensors
+        r = ctx.radius
+        b, k, f, gh, gw = others.shape
+        n = (2 * r + 1) ** 2
+        g = g.to(ref.dtype)
+        gv = g[:, :k * n].reshape(b, k, n, gh, gw) * _bf16(float(f) ** -0.5)
+        pad = F.pad(others, (r, r, r, r))
+        d_ref = g[:, k * n:].clone()
+        d_pad = torch.zeros_like(pad)
+        for kk in reversed(range(k)):
+            for sh in reversed(range(n)):
+                dy, dx = divmod(sh, 2 * r + 1)
+                c = gv[:, kk, sh, None]
+                d_ref = d_ref + c * pad[:, kk, :, dy:dy + gh, dx:dx + gw]
+                d_pad[:, kk, :, dy:dy + gh, dx:dx + gw] += c * ref
+        return d_ref, d_pad[..., r:r + gh, r:r + gw], None
 
 
 class MotionEstimator(nn.Module):
-    """Corr-arch motion CNN; the parameter tree of one checkpoint."""
+    """The motion CNN of ``cfg.arch``; the parameter tree of one
+    checkpoint."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.arch != "corr":
-            raise NotImplementedError(
-                f"arch {cfg.arch!r} is not ported yet (corr only)")
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype {cfg.dtype!r} is not ported yet (float32 only)")
+        if cfg.arch not in _ARCHS:
+            raise ValueError(f"arch must be one of {_ARCHS}, got "
+                             f"{cfg.arch!r}")
+        compute_dtype(cfg)
         self.cfg = cfg
+        if cfg.arch == "stacked":
+            feats = _add_trunk(self, cfg, cfg.window * cfg.channels)
+            self.head_conv = SameConv2d(feats, feats, 3)
+            self.head_out = SameConv2d(feats, 2, 3)
+            return
         self.encoder = FrameEncoder(cfg)
         n_corr = (cfg.window - 1) * (2 * cfg.corr_radius + 1) ** 2
         self.head_conv1 = SameConv2d(n_corr + self.encoder.out_features,
@@ -159,7 +405,9 @@ class MotionEstimator(nn.Module):
         n = cfg.window
         b, _, _, gh, gw = feats.shape
         ref = feats[:, -1]                  # the frame being stabilized
-        if n > 1:
+        if n > 1 and feats.dtype == torch.bfloat16:
+            x = _CorrInputBf16.apply(ref, feats[:, :-1], cfg.corr_radius)
+        elif n > 1:
             vols = correlation_volume(ref, feats[:, :-1], cfg.corr_radius)
             # window frame k's (2r+1)^2 channels, in order, then ref
             x = torch.cat([vols.reshape(b, -1, gh, gw), ref], dim=1)
@@ -168,6 +416,13 @@ class MotionEstimator(nn.Module):
         x = gelu(self.head_conv1(x.to(torch.float32)))
         x = gelu(self.head_conv2(x))
         return torch.tanh(self.head_out(x)) * cfg.max_offset
+
+    def stacked_forward(self, windows: torch.Tensor) -> torch.Tensor:
+        """Stacked arch, NCHW: windows (B, N*C, Hm, Wm) → offsets
+        (B, 2, gh, gw); the head is f32 whatever the trunk's dtype."""
+        x = _trunk(self, self.cfg, windows, f32_out=True)
+        x = gelu(self.head_conv(x.to(torch.float32)))
+        return torch.tanh(self.head_out(x)) * self.cfg.max_offset
 
 
 # Standard deviation of a unit normal truncated to [-2, 2]: the reference's
@@ -178,11 +433,11 @@ _TRUNC_STD = 0.87962566103423978
 
 def init_params(cfg: ModelConfig, generator: torch.Generator
                 ) -> dict[str, torch.Tensor]:
-    """A fresh state dict for ``MotionEstimator(cfg)``, drawn from
-    ``generator`` as the reference initializes its model: conv kernels
-    truncated normal (±2 sigma) with variance 1 / fan_in, biases zero,
-    GroupNorm weight one, and a zero ``head_out`` kernel, so an untrained
-    model predicts zero offsets (the identity warp)."""
+    """A fresh state dict for ``MotionEstimator(cfg)`` (either arch), drawn
+    from ``generator`` as the reference initializes its model: conv
+    kernels truncated normal (±2 sigma) with variance 1 / fan_in, biases
+    zero, GroupNorm weight one, and a zero ``head_out`` kernel, so an
+    untrained model predicts zero offsets (the identity warp)."""
     model = MotionEstimator(cfg)
     params = {}
     for name, p in model.state_dict().items():
@@ -200,14 +455,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator
     return params
 
 
+def predict_offsets(model: MotionEstimator, windows: torch.Tensor
+                    ) -> torch.Tensor:
+    """Apply the CNN: windows (B, Hm, Wm, N*C) → offsets (B, gh, gw, 2),
+    window frame n's channel c at n*C + c."""
+    cfg = model.cfg
+    mh, mw = cfg.model_size
+    n, c = cfg.window, cfg.channels
+    if tuple(windows.shape[-3:]) != (mh, mw, n * c):
+        raise ValueError(f"expected windows (*, {mh}, {mw}, {n * c}), got "
+                         f"{tuple(windows.shape)}")
+    x = windows.to(torch.float32)
+    if cfg.arch == "stacked":
+        out = model.stacked_forward(x.permute(0, 3, 1, 2).contiguous())
+        return out.permute(0, 2, 3, 1)
+    b = x.shape[0]
+    frames = x.reshape(b, mh, mw, n, c).permute(0, 3, 1, 2, 4)
+    feats = encode_frames(model, frames.reshape(b * n, mh, mw, c))
+    return offsets_from_feature_windows(
+        model, feats.reshape(b, n, *feats.shape[1:]))
+
+
 def encode_frames(model: MotionEstimator, frames: torch.Tensor
                   ) -> torch.Tensor:
     """Per-frame encoder pass: frames (B, Hm, Wm, C) → features
-    (B, gh, gw, F).
+    (B, gh, gw, F), in the compute dtype. The corr arch only.
 
     Sliding windows share window-1 of their frames, so callers encode each
     unique frame once and assemble feature windows.
     """
+    if model.cfg.arch != "corr":
+        raise ValueError("feature caching requires the corr architecture")
     x = frames.to(torch.float32).permute(0, 3, 1, 2).contiguous()
     return model.encoder(x).permute(0, 2, 3, 1)
 

@@ -1,8 +1,9 @@
 """Streaming stabilization pipeline: one device step per T-frame chunk.
 
     uint8 chunk → resize to model res (normalize folded in) → encoder over
-      the unique frames → feature windows → corr head offsets
-      → fused offsets-to-warp-to-uint8 kernel → uint8 chunk
+      the unique frames → feature windows → corr head offsets (the stacked
+      arch: stacked pixel windows → the model) → fused
+      offsets-to-warp-to-uint8 kernel → uint8 chunk
 
 Long videos stream in chunks of T frames carrying a (window-1)-frame
 model-resolution halo between chunks. The last partial chunk is padded
@@ -52,6 +53,18 @@ def downscale_frames(cfg: StabilizeConfig, frames_u8: torch.Tensor
     return small.reshape(*frames_u8.shape[:-3], *small.shape[1:])
 
 
+def build_windows(seq: torch.Tensor, num_out: int, window: int
+                  ) -> torch.Tensor:
+    """Stack sliding windows: seq (..., T+N-1, h, w, C) → (..., T, h, w,
+    N*C); output t's window is seq[t : t+N], frame n's channel c at
+    n*C + c."""
+    idx = (torch.arange(num_out, device=seq.device)[:, None]
+           + torch.arange(window, device=seq.device)[None, :])
+    win = seq[..., idx, :, :, :]                  # (..., T, N, h, w, C)
+    win = win.movedim(-4, -2)                     # (..., T, h, w, N, C)
+    return win.reshape(*win.shape[:-2], -1)
+
+
 def predict_chunk_offsets(cfg: StabilizeConfig,
                           model: motion_cnn.MotionEstimator,
                           seq: torch.Tensor, t: int) -> torch.Tensor:
@@ -59,22 +72,28 @@ def predict_chunk_offsets(cfg: StabilizeConfig,
     (t + window - 1)-frame model-resolution sequence (..., t+N-1, mh, mw,
     C); a leading clip axis is folded into the frame axis.
 
-    Sliding windows share window-1 frames, so each unique frame is encoded
-    once and feature windows are assembled from the cache, per clip. The
-    encoder and the head run in fixed-size calls on the card
-    (ops/grouped.py).
+    The corr arch encodes each unique frame once (sliding windows share
+    window-1 frames) and assembles feature windows from the cache, per
+    clip; the stacked arch runs the model on the stacked pixel windows.
+    The model runs in fixed-size calls on the card (ops/grouped.py).
     """
     n = cfg.model.window
     lead = seq.shape[:-4]
-    feats = in_groups(lambda f: motion_cnn.encode_frames(model, f),
-                      seq.reshape(-1, *seq.shape[-3:]), ENCODE_GROUP)
-    feats = feats.reshape(*lead, seq.shape[-4], *feats.shape[1:])
-    idx = (torch.arange(t, device=seq.device)[:, None]
-           + torch.arange(n, device=seq.device)[None, :])
-    windows = feats[..., idx, :, :, :]                # (..., t, n, gh, gw, F)
-    offsets = in_groups(
-        lambda w: motion_cnn.offsets_from_feature_windows(model, w),
-        windows.reshape(-1, *windows.shape[-4:]), CHUNK_GROUP)
+    if cfg.model.arch == "stacked":
+        windows = build_windows(seq, t, n)
+        offsets = in_groups(
+            lambda w: motion_cnn.predict_offsets(model, w),
+            windows.reshape(-1, *windows.shape[-3:]), CHUNK_GROUP)
+    else:
+        feats = in_groups(lambda f: motion_cnn.encode_frames(model, f),
+                          seq.reshape(-1, *seq.shape[-3:]), ENCODE_GROUP)
+        feats = feats.reshape(*lead, seq.shape[-4], *feats.shape[1:])
+        idx = (torch.arange(t, device=seq.device)[:, None]
+               + torch.arange(n, device=seq.device)[None, :])
+        windows = feats[..., idx, :, :, :]          # (..., t, n, gh, gw, F)
+        offsets = in_groups(
+            lambda w: motion_cnn.offsets_from_feature_windows(model, w),
+            windows.reshape(-1, *windows.shape[-4:]), CHUNK_GROUP)
     offsets = offsets.reshape(*lead, t, *offsets.shape[1:])
     if cfg.strength != 1.0:
         # Partial stabilization: scale the predicted correction.
@@ -222,16 +241,21 @@ def initial_halo(cfg: StabilizeConfig, first_frame_u8: np.ndarray,
     return small.repeat(cfg.model.window - 1, 1, 1, 1)
 
 
-def build_model(mcfg, params: dict, device: torch.device
-                ) -> motion_cnn.MotionEstimator:
-    """The motion CNN with ``params`` loaded, on ``device``, for inference.
-
-    The configs are float32: cuDNN convolutions and cuBLAS matmuls stay in
-    full f32 (TF32 keeps ~3 decimal digits, far outside the reference's
-    tolerance). These are process-wide switches.
-    """
+def exact_math() -> None:
+    """Keep cuDNN and cuBLAS in the precision the model asks for: no TF32
+    for f32 (it keeps ~3 decimal digits, far outside the reference's
+    tolerance) and no reduced-precision reductions for bf16 GEMMs. These
+    are process-wide switches."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def build_model(mcfg, params: dict, device: torch.device
+                ) -> motion_cnn.MotionEstimator:
+    """The motion CNN with ``params`` loaded, on ``device``, for inference
+    (``exact_math``)."""
+    exact_math()
     model = motion_cnn.MotionEstimator(mcfg)
     model.load_state_dict(params)
     return model.to(device).eval()

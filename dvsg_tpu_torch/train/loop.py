@@ -27,6 +27,7 @@ from dvsg_tpu_torch.config import TrainConfig
 from dvsg_tpu_torch.models import motion_cnn
 from dvsg_tpu_torch.ops import grid as grid_ops
 from dvsg_tpu_torch.ops import warp as warp_ops
+from dvsg_tpu_torch.pipeline.stabilize import build_windows, exact_math
 from dvsg_tpu_torch.train import synthetic
 
 # Consecutive windows per sample for the temporal-smoothness term.
@@ -83,6 +84,7 @@ def build_state(cfg: TrainConfig, params: dict, device="cuda",
     """A TrainState around the given weights with a fresh optimizer and
     the schedule positioned at ``step`` updates."""
     device = resolve_device(device)
+    exact_math()
     model = motion_cnn.MotionEstimator(cfg.model)
     model.load_state_dict(params)
     model.to(device).train()
@@ -198,12 +200,16 @@ def loss_from_batch(model: motion_cnn.MotionEstimator, batch,
     b, s = lasts.shape[:2]
     clip_len = in_frames.shape[1]
 
-    # Encode each unique frame once; windows share window-1 frames.
-    feats = motion_cnn.encode_frames(model, in_frames.flatten(0, 1))
-    feats = feats.reshape(b, clip_len, *feats.shape[1:])
-    fwins = torch.stack([feats[:, k:k + n] for k in range(s)], dim=1)
-    offsets = motion_cnn.offsets_from_feature_windows(
-        model, fwins.flatten(0, 1))
+    if cfg.model.arch == "stacked":
+        wins = build_windows(in_frames, s, n)          # (B, S, mh, mw, N*C)
+        offsets = motion_cnn.predict_offsets(model, wins.flatten(0, 1))
+    else:
+        # Encode each unique frame once; windows share window-1 frames.
+        feats = motion_cnn.encode_frames(model, in_frames.flatten(0, 1))
+        feats = feats.reshape(b, clip_len, *feats.shape[1:])
+        fwins = torch.stack([feats[:, k:k + n] for k in range(s)], dim=1)
+        offsets = motion_cnn.offsets_from_feature_windows(
+            model, fwins.flatten(0, 1))
     grids = grid_ops.grid_from_offsets(offsets, mh, mw)
     # Grid-differentiable warp; frames are data, so grid-only gradients
     # are exactly what the loss needs.
@@ -256,13 +262,12 @@ def train(cfg: TrainConfig, checkpoint_dir: Optional[str] = None,
           history: Optional[list] = None) -> TrainState:
     """Run (or continue, from ``state``) the schedule to ``cfg.steps``.
 
-    The configs are float32: cuDNN convolutions and cuBLAS matmuls are kept
-    in full f32 (process-wide switches), so a card's losses can be held
-    against the CPU's. ``history``, if given, receives every step's loss
-    terms as floats (one device synchronize per step).
+    cuDNN convolutions and cuBLAS matmuls are kept in the model's precision
+    (``build_state`` sets ``exact_math``'s process-wide switches), so a
+    card's losses can be held against the CPU's. ``history``, if given,
+    receives every step's loss terms as floats (one device synchronize per
+    step).
     """
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     if state is None:
         state = init_state(
             cfg, torch.Generator().manual_seed(cfg.seed), device)

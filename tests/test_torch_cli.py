@@ -3,6 +3,7 @@ directory, the reference's model, metrics and warp flags on ``stabilize``,
 the configs at the package root, and ``stabilize-batch`` (mirrors of
 tests/test_io_cli.py and tests/test_multiclip.py)."""
 
+import dataclasses
 import json
 import os
 
@@ -129,7 +130,6 @@ def test_stabilize_metrics_out_and_warp_impl_auto(tmp_path):
 @pytest.mark.parametrize("extra,match", [
     (["--warp-impl", "lax"], "one warp route"),
     (["--warp-impl", "pallas"], "one warp route"),
-    (["--dtype", "bfloat16"], "not ported yet"),
     (["--checkpoint", FAST, "--preset", "fast"], "not both"),
 ])
 @pytest.mark.parametrize("command", ["stabilize", "stabilize-batch"])
@@ -140,6 +140,24 @@ def test_refused_flags_exit_2(tmp_path, capsys, command, extra, match):
     assert cli.main([command, *io, "--platform", "cpu", *extra]) == 2
     assert match in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "o")
+
+
+@pytest.mark.parametrize("command", ["stabilize", "stabilize-batch"])
+def test_dtype_bfloat16_runs_the_bf16_model(tmp_path, command):
+    """--dtype bfloat16 re-applies onto the committed fast checkpoint's
+    config (it was refused before bf16 was ported): the output is the
+    library's bf16 Stabilizer's, bytewise."""
+    frames = _clip(6, key=12)
+    src = _write_dir(tmp_path / "in", frames)
+    io = (["--input", src, "--output", str(tmp_path / "out")]
+          if command == "stabilize" else
+          ["--inputs", src, "--outputs", str(tmp_path / "out")])
+    assert cli.main([command, *io, "--platform", "cpu", "--chunk-frames",
+                     "4", "--dtype", "bfloat16"]) == 0
+    params, mcfg = ckpt.load_npz(FAST)
+    want = _stab(params, dataclasses.replace(mcfg, dtype="bfloat16")
+                 ).stabilize_clip(frames)
+    np.testing.assert_array_equal(_read_dir(tmp_path / "out"), want)
 
 
 def test_usage_names_every_command(capsys):

@@ -568,3 +568,90 @@ def test_world_of_one_over_nccl(dev, tmp_path):
             out, Stabilizer(cfg, params, device=dev).stabilize_clip(clip))
     finally:
         dist.destroy_process_group()
+
+
+# --- bf16 compute and the stacked arch ------------------------------------
+
+def _variant(mcfg, variant: str, params):
+    """(model config, weights) of a variant of the fast model: bf16 on
+    the committed weights, or the stacked arch from a seeded init with a
+    seeded head (an init's zero head_out would predict no motion)."""
+    import dataclasses
+    from dvsg_tpu_torch.models import motion_cnn
+    if variant == "bf16":
+        return dataclasses.replace(mcfg, dtype="bfloat16"), params
+    cfg = dataclasses.replace(mcfg, arch="stacked",
+                              dtype="bfloat16" if "bf16" in variant
+                              else "float32")
+    gen = torch.Generator().manual_seed(3)
+    sd = motion_cnn.init_params(cfg, gen)
+    sd["head_out.weight"] = 0.01 * torch.randn(
+        sd["head_out.weight"].shape, generator=gen)
+    return cfg, sd
+
+
+@pytest.mark.parametrize("variant", ["bf16", "stacked", "stacked_bf16"])
+def test_variant_on_the_card_is_invariant_and_near_the_cpu(dev, variant):
+    """bf16 and the stacked arch on the card: one clip byte-identical in a
+    batch of 1 and 4 and at T = 8 and 16, with one launch of the offsets
+    kernel a chunk; f32 within 1 LSB of the CPU path, bf16 within 2 (the
+    card's bf16 convolutions sum in another order)."""
+    from dvsg_tpu_torch.config import StabilizeConfig
+    from dvsg_tpu_torch.parallel import dp
+    from dvsg_tpu_torch.pipeline import stabilize as st
+    params, mcfg, clips = _fast_setup(n_clips=4, frames=24)
+    mcfg, params = _variant(mcfg, variant, params)
+    cfg = StabilizeConfig(model=mcfg, chunk_frames=8)
+    before = warp_wide.LAUNCHES
+    want = st.Stabilizer(cfg, params, device=dev).stabilize_clip(clips[0])
+    assert warp_wide.LAUNCHES == before + 3
+    t16 = st.Stabilizer(cfg.replace(chunk_frames=16), params,
+                        device=dev).stabilize_clip(clips[0])
+    np.testing.assert_array_equal(t16, want)
+    model = st.build_model(mcfg, params, dev)
+    for b in (1, 4):
+        out = st.drive_chunked_batch(dp.batch_step(cfg), model, cfg,
+                                     clips[:b])
+        np.testing.assert_array_equal(out[0], want, err_msg=f"B={b}")
+    cpu = st.Stabilizer(cfg, params, device="cpu").stabilize_clip(clips[0])
+    assert np.abs(cpu.astype(int) - want).max() <= (
+        2 if mcfg.dtype == "bfloat16" else 1)
+
+
+@pytest.mark.parametrize("variant", ["bf16", "stacked"])
+def test_variant_train_step_on_the_card(dev, variant):
+    """A train step of bf16 and of the stacked arch on the card: finite
+    loss terms, one launch of each training kernel."""
+    from dvsg_tpu_torch.config import TrainConfig
+    from dvsg_tpu_torch.train import loop
+    params, mcfg, _ = _fast_setup(n_clips=1, frames=8)
+    mcfg, params = _variant(mcfg, variant, params)
+    cfg = TrainConfig(model=mcfg, batch_size=2, steps=4, warmup_steps=1)
+    state = loop.build_state(cfg, params, dev)
+    before = (warp_bilinear.LAUNCHES_WARP, warp_bilinear.LAUNCHES_DIFF_FWD,
+              warp_bilinear.LAUNCHES_DIFF_BWD)
+    aux = loop.train_step(state, loop.step_generator(0, 0), cfg)
+    assert all(np.isfinite(float(v)) for v in aux.values())
+    assert (warp_bilinear.LAUNCHES_WARP, warp_bilinear.LAUNCHES_DIFF_FWD,
+            warp_bilinear.LAUNCHES_DIFF_BWD) == tuple(b + 1 for b in before)
+
+
+def test_profiler_traces_the_kernel_on_the_card(dev, tmp_path):
+    """torch.profiler sees the ctypes-launched offsets kernel on the card:
+    the summary counts it once a chunk and the device lane has an idle
+    share."""
+    from dvsg_tpu_torch.config import StabilizeConfig
+    from dvsg_tpu_torch.pipeline import stabilize as st
+    from dvsg_tpu_torch.utils import profiling
+    params, mcfg, clips = _fast_setup(n_clips=1, frames=24)
+    stab = st.Stabilizer(StabilizeConfig(model=mcfg, chunk_frames=8),
+                         params, device=dev)
+    stab.stabilize_clip(clips[0])
+    with profiling.trace(str(tmp_path), dev):
+        stab.stabilize_clip(clips[0])
+    summary = profiling.summarize_trace(str(tmp_path), min_us=0.0)
+    b1 = [v["count"] for k, v in summary.items()
+          if "warp_u8_offsets_packed_kernel" in k]
+    assert b1 == [3]
+    busy = profiling.device_busy_stats(str(tmp_path))
+    assert 0.0 <= busy["idle_pct"] < 100.0 and busy["busy_ms"] > 0

@@ -156,6 +156,17 @@ def test_eval_cli_default_is_the_committed_fast_model(capsys):
     assert gain > 0          # the shipped weights stabilize
 
 
+def test_eval_cli_bfloat16_gains(capsys):
+    """eval --dtype bfloat16 (refused before bf16 was ported) runs the
+    committed fast weights in bf16, which still stabilize."""
+    rc = cli.eval_main(["--clips", "1", "--frames", "8", "--size", "96",
+                        "128", "--chunk-frames", "8", "--dtype", "bfloat16",
+                        "--platform", "cpu"])
+    assert rc == 0
+    mean = capsys.readouterr().out.splitlines()[-1]
+    assert float(mean.split("psnr_gain_db=")[1].split()[0]) > 0
+
+
 def test_eval_cli_with_path_smoothing(capsys):
     """eval --path-smooth runs the smoothed Stabilizer and reports."""
     assert cli.eval_main(["--clips", "1", "--frames", "8", "--size", "32",
@@ -165,7 +176,6 @@ def test_eval_cli_with_path_smoothing(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--path-smooth-lag", "4"],
-                                   ["--dtype", "bfloat16"],
                                    ["--preset", "fast", "--checkpoint", "x"],
                                    ["--chunk-frames", "0"]])
 def test_eval_cli_refuses(flags, capsys):

@@ -49,8 +49,8 @@ def test_port_imports_no_jax():
              "multiclip")} <= set(mods)
     assert {"dvsg_tpu_torch.parallel.dp", "dvsg_tpu_torch.serve",
             "dvsg_tpu_torch.parallel.mesh", "dvsg_tpu_torch.parallel.temporal",
-            "dvsg_tpu_torch.parallel.dryrun", "dvsg_tpu_torch.export"
-            } <= set(mods)
+            "dvsg_tpu_torch.parallel.dryrun", "dvsg_tpu_torch.export",
+            "dvsg_tpu_torch.utils.profiling"} <= set(mods)
     res = subprocess.run([sys.executable, "-c", _PROBE.format(mods=mods)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)

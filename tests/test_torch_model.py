@@ -174,6 +174,21 @@ def test_params_from_flax_rejects_bad_trees(pair):
 
 @pytest.mark.parametrize("kw", [dict(arch="stacked"),
                                 dict(dtype="bfloat16")])
-def test_unported_model_variants_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmodel.MotionEstimator(ModelConfig(**kw))
+def test_model_variants_build_and_start_at_identity(kw):
+    """Both of the reference's other variants build (they were refused
+    before they were ported); a fresh init predicts zero offsets, and only
+    the corr arch caches features."""
+    cfg = ModelConfig(window=3, model_size=(32, 32), grid_size=(8, 8),
+                      base_features=8, blocks_per_level=1, **kw)
+    model = tmodel.MotionEstimator(cfg)
+    model.load_state_dict(tmodel.init_params(cfg, torch.Generator()
+                                             .manual_seed(0)))
+    windows = torch.rand(2, 32, 32, 9, generator=torch.Generator()
+                         .manual_seed(1)) - 0.5
+    with torch.no_grad():
+        off = tmodel.predict_offsets(model, windows)
+    assert off.shape == (2, 8, 8, 2) and off.dtype == torch.float32
+    assert not off.any()
+    if cfg.arch == "stacked":
+        with pytest.raises(ValueError, match="corr architecture"):
+            tmodel.encode_frames(model, windows[..., :3])

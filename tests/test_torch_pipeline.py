@@ -228,7 +228,7 @@ def test_cli_resume_dir_and_quality_preset(clip, tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--artifact", "m.dvsgx"], ["--profile-dir", "p"],
+    ["--artifact", "m.dvsgx"],
     ["--border-crop", "0.5"], ["--strength", "3"], ["--chunk-frames", "0"],
     ["--checkpoint", "nope.npz"], ["--path-smooth-lag", "8"],
 ])
@@ -237,8 +237,6 @@ def test_cli_refuses_unported_and_bad_flags(tmp_path, extra, capsys):
                    str(tmp_path / "o"), "--platform", "cpu", *extra])
     assert rc == 2
     err = capsys.readouterr().err
-    if extra[0] == "--profile-dir":
-        assert "not ported yet" in err
     if extra[0] == "--artifact":
         assert "does not exist" in err
     if extra[0] == "--path-smooth-lag":       # a lag needs a horizon

@@ -176,5 +176,11 @@ def test_train_cli_resume_rejects_other_model(tmp_path, capsys):
                          "--window", "5", "--model-size", "32", "32",
                          "--grid-size", "8", "8", "--platform", "cpu"])
     assert rc == 2 and "mismatch" in capsys.readouterr().err
-    assert cli.train_main(["--checkpoint", out, "--dtype", "bfloat16",
-                           "--platform", "cpu"]) == 2
+    # bf16 compute (refused before it was ported) trains a fresh run.
+    fresh = str(tmp_path / "bf16")
+    assert cli.train_main(["--checkpoint", fresh, "--steps", "1",
+                           "--batch-size", "2", "--window", "3",
+                           "--model-size", "32", "32", "--grid-size", "8",
+                           "8", "--dtype", "bfloat16",
+                           "--platform", "cpu"]) == 0
+    assert ckpt.load_checkpoint(fresh)[1].dtype == "bfloat16"
