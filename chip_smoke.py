@@ -110,7 +110,25 @@ on failure:
    against the plain step; (e) ``stabilize --profile-dir``'s trace and
    ``[profile]`` lines around the ``fast`` sync and overlapped streams of
    the 720p clip: B1's packed kernel once a chunk in the trace, the top
-   eight ops, each stream's device idle share (a 96-frame clip).
+   eight ops, each stream's device idle share (a 96-frame clip);
+11. staging, export for the card without one, tensor parallelism,
+   examples, quality table: (a) the host staging extension
+   (``utils/staging.py``) byte-equal to the plain numpy swap on a
+   16x720x1280x3 chunk, host times of both (medians of 20 in turns) beside
+   the host's CPU and core count, a ``StagingRing`` slot filled and
+   uploaded to the card; (b) both presets exported for the card at
+   1280x720, T = 16, by a process that sees no card (``export
+   --for-platform cuda``), loaded on cuda:0: frames byte-equal to
+   ``stabilize_clip`` with one launch a chunk, the artifact's queued chunk
+   time beside the live chunk's; (c) tensor parallelism: two gloo ranks
+   sharing cuda:0 on a (1, 2) ("data", "model") mesh, both presets at full
+   width: offsets within 2e-5 of the unsharded model, a 720p chunk through
+   ``TPStabilizer`` within 1 LSB of ``stabilize_clip`` with one launch, its
+   time against unsharded; (d) every example of ``examples/torch`` as a
+   subprocess on cuda, all together, each printing its line (those that
+   need OpenCV only where it imports); (e) where OpenCV imports, the
+   quality table's sway and handheld rows on the card, held to the gates
+   of tests/test_torch_quality_table.py.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes every
@@ -2772,6 +2790,355 @@ def phase_bf16_stacked(seed: int, dev, work_dir: str):
     return launches, train_counts, results
 
 
+# --- staging, export for the card, tensor parallelism, examples, quality ----
+
+# Phase 11: the staging chunk, the cross-exported artifacts' clip, the TP
+# check's windows and ranks (sharing cuda:0 over gloo), its offsets
+# tolerance (the reference's, tests/test_parallel.py), and the port's
+# examples with the small arguments of tests/test_torch_examples.py and the
+# line each must print (the last field: needs OpenCV).
+STAGING_SHAPE = (T_CHUNK, HEIGHT, WIDTH, 3)
+P11_FRAMES, TP_WINDOWS, TP_RANKS, TP_TOL = 48, 8, 2, 2e-5
+EXAMPLES = (
+    ("01_library_quickstart.py", ("--frames", "12"), "gain +", False),
+    ("02_streaming_online.py", ("--frames", "9", "--chunk-frames", "4"),
+     "done: 9/9 stabilized frames", False),
+    ("03_serve_client.py", (), "stabilized ", True),
+    ("04_batch_data_parallel.py", (), "stabilized 8 clips", False),
+    ("05_finetune_on_footage.py", ("--steps", "4"), "on held-out footage:",
+     True),
+    ("06_export_deploy.py", ("--frames", "8"),
+     "stabilized 8 frames from the artifact", False),
+    ("06_export_deploy.py", ("--frames", "8", "--for-device", "cuda"),
+     "stabilized 8 frames from the artifact", False),
+    ("07_path_smoothing.py", ("--frames", "32", "--horizon", "16"),
+     "path_smooth=16", True))
+# A process that sees no card exports for the card through the CLI.
+_NO_CARD_EXPORT = ("import sys, torch; assert not torch.cuda.is_available(), "
+                   "'the exporting process sees a card'; from "
+                   "dvsg_tpu_torch.cli import main; sys.exit(main("
+                   "sys.argv[1:]))")
+
+
+def host_line() -> str:
+    """The host's CPU model and core count (host-clock times depend on
+    them)."""
+    import platform
+    model = platform.processor() or "CPU model not reported"
+    try:
+        with open("/proc/cpuinfo") as f:
+            fields = dict(line.split(":", 1) for line in f if ":" in line)
+        model = next(fields[k].strip() for k in ("model name\t", "Model\t",
+                                                  "CPU part\t")
+                     if k in fields)
+    except (OSError, StopIteration, ValueError):
+        pass
+    return (f"{platform.machine()} {model}, nproc {os.cpu_count()} "
+            f"({len(os.sched_getaffinity(0))} usable)")
+
+
+def host_median_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Median ms of ``iters`` calls on the host clock."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def have_opencv() -> bool:
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def phase11_staging(dev) -> dict:
+    """(a) The staging extension against the plain swap on a 720p chunk,
+    byte-equal; host times of both in turns; a ``StagingRing`` slot
+    filled by ``stack_frames`` and uploaded to the card."""
+    from dvsg_tpu_torch.utils import staging
+    t0 = time.perf_counter()
+    mod = staging.native()
+    build_s = time.perf_counter() - t0
+    chunk = np.random.default_rng(11).integers(0, 256, STAGING_SHAPE,
+                                               dtype=np.uint8)
+    ext, plain = staging.bgr_to_rgb(chunk), staging.bgr_to_rgb_plain(chunk)
+    if not np.array_equal(ext, plain):
+        raise AssertionError("staging: the extension's swap differs from "
+                             f"the plain swap on {int((ext != plain).sum())} "
+                             "bytes")
+    out = np.empty_like(chunk)
+    fns = {"extension": lambda: staging.bgr_to_rgb(chunk, out=out),
+           "plain": lambda: staging.bgr_to_rgb_plain(chunk, out=out)}
+    times = {k: [] for k in fns}
+    for k in ("extension", "plain", "plain", "extension"):
+        times[k].append(host_median_ms(fns[k]))
+    ring = staging.StagingRing(2, STAGING_SHAPE)
+    slot = ring.next_slot()
+    staging.stack_frames(list(chunk), out=slot)
+    if not np.array_equal(slot, chunk):
+        raise AssertionError("staging: stack_frames into a ring slot")
+
+    def upload():
+        torch.from_numpy(slot).to(dev)
+        torch.cuda.synchronize()
+    up_ms = host_median_ms(upload)
+    if not torch.equal(torch.from_numpy(slot).to(dev).cpu(),
+                       torch.from_numpy(chunk)):
+        raise AssertionError("staging: the uploaded slot differs")
+    res = {"host": host_line(), "pool_size": mod.pool_size(),
+           "build_s": build_s, "swap_ms": times, "bytes": chunk.nbytes,
+           "ring_upload_ms": up_ms,
+           "ring_upload_gb_s": chunk.nbytes / up_ms / 1e6}
+    log(f"  staging extension (built in {build_s:.1f} s, pool of "
+        f"{res['pool_size']}) == the plain swap on a {STAGING_SHAPE} "
+        f"chunk; host ms, medians of 20 in turns: extension "
+        + ", ".join(f"{t:.3f}" for t in times["extension"]) + "; plain "
+        + ", ".join(f"{t:.3f}" for t in times["plain"])
+        + f"; ring slot -> card {up_ms:.3f} ms "
+        f"({res['ring_upload_gb_s']:.2f} GB/s); host {res['host']}")
+    return res
+
+
+def phase11_cross_export(seed: int, dev, work_dir: str):
+    """(b) Both presets exported for the card at 1280x720, T = 16, by a
+    process that sees no card (``export --for-platform cuda``), loaded on
+    cuda:0: the artifact's frames byte-equal to ``stabilize_clip`` with one
+    launch a chunk; its queued chunk time beside the live chunk's."""
+    from dvsg_tpu_torch import export as export_lib
+    clip = make_clip(seed + 110, P11_FRAMES, HEIGHT, WIDTH, dev)[0]
+    n_chunks = math.ceil(P11_FRAMES / T_CHUNK)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = []
+    t0 = time.perf_counter()
+    for preset, _ in PRESETS:
+        path = os.path.join(work_dir, f"{preset}_for_card.dvsgt")
+        procs.append((preset, path, subprocess.Popen(
+            [sys.executable, "-c", _NO_CARD_EXPORT, "export", "--preset",
+             preset, "--size", str(HEIGHT), str(WIDTH), "--chunk-frames",
+             str(T_CHUNK), "--for-platform", "cuda", "--output", path],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    for preset, _, proc in procs:
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"[{preset}] export --for-platform cuda in "
+                                 f"a process without a card failed "
+                                 f"({proc.returncode}):\n{err[-3000:]}")
+        log(f"  [{preset}] no-card process: {out.strip().splitlines()[-1]}")
+    export_s = time.perf_counter() - t0
+    launches, res = 0, {"export_both_s": export_s}
+    for (preset, ckpt), (_, path, _) in zip(PRESETS, procs):
+        params, mcfg = load_npz(os.path.join(ROOT, "checkpoints", ckpt))
+        cfg = StabilizeConfig(model=mcfg, chunk_frames=T_CHUNK)
+        loaded = export_lib.load_exported(path)
+        if loaded.device != dev or loaded.meta["device"] != "cuda:0":
+            raise AssertionError(f"[{preset}] artifact for "
+                                 f"{loaded.meta['device']} on {loaded.device}")
+        live = stab_lib.Stabilizer(cfg, params, device=dev)
+        want = live.stabilize_clip(clip)
+        out, n = counted(f"[{preset}] artifact exported without a card",
+                         n_chunks, lambda: loaded.stabilize_clip(clip))
+        launches += n
+        same_bytes(f"[{preset}] artifact exported without a card", [out],
+                   [want])
+        with torch.inference_mode():
+            frames = stab_lib.put_frames(clip[:T_CHUNK], dev)
+            halo = stab_lib.initial_halo(cfg, clip[0], dev)
+            fns = {"live": lambda: stab_lib.stabilize_chunk_impl(
+                       cfg, live.model, frames, halo),
+                   "artifact": lambda: loaded.chunk(frames, halo)}
+            times = {k: [] for k in fns}
+            for k in ("live", "artifact", "artifact", "live"):
+                times[k].append(queued_ms(fns[k]))
+        res[preset] = {"launches": n, "queued_chunk_ms": times,
+                       "artifact_bytes": os.path.getsize(path)}
+        log(f"  [{preset}] artifact exported for the card without one "
+            f"({os.path.getsize(path)} bytes) == stabilize_clip bytewise "
+            f"on cuda:0, {n} launches; queued chunk ms, live "
+            + ", ".join(f"{t:.4f}" for t in times["live"]) + ", artifact "
+            + ", ".join(f"{t:.4f}" for t in times["artifact"]))
+        del loaded, live
+    return launches, res
+
+
+def _p11_tp_rank(rank: int, n: int, store: str, work_dir: str, seed: int,
+                 device: str) -> None:
+    """One of the TP ranks sharing ``device`` over gloo on a (1, n) mesh:
+    both presets' offsets through the sharded model against the unsharded
+    one, a 720p chunk through ``TPStabilizer`` against ``stabilize_clip``,
+    and the chunk's time sharded and not."""
+    import pickle
+    import torch.distributed as dist
+    from dvsg_tpu_torch.parallel import dryrun, tp
+    from dvsg_tpu_torch.parallel import mesh as mesh_lib
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    stab_lib.exact_math()
+    dryrun.join_group(rank, n, store, "gloo", timeout_s=300)
+    try:
+        mesh = mesh_lib.make_mesh((1, n), axis_names=("data", "model"),
+                                  device=dev)
+        clip = make_clip(seed + 111, T_CHUNK, HEIGHT, WIDTH, dev)[0]
+        rng = np.random.default_rng(seed + 112)
+        res = {}
+        for preset, ckpt in PRESETS:
+            params, mcfg = load_npz(os.path.join(ROOT, "checkpoints", ckpt))
+            cfg = StabilizeConfig(model=mcfg, chunk_frames=T_CHUNK)
+            mh, mw = mcfg.model_size
+            windows = torch.from_numpy(
+                rng.random((TP_WINDOWS, mh, mw, 3 * mcfg.window),
+                           np.float32) - 0.5).to(dev)
+            plain = stab_lib.Stabilizer(cfg, params, device=dev)
+            sharded = tp.TPStabilizer(cfg, params, mesh)
+            n_sharded = sum(isinstance(m, (tp._GatheredConv,
+                                           tp._TPResBlock))
+                            for m in sharded.model.modules())
+            with torch.inference_mode():
+                a = motion_cnn.predict_offsets(plain.model, windows)
+                b = motion_cnn.predict_offsets(sharded.model, windows)
+            want = plain.stabilize_clip(clip)
+            got = sharded.stabilize_clip(clip)                 # warm-up
+            warp_wide.LAUNCHES = 0
+            got, tp_s = timed(lambda: sharded.stabilize_clip(clip))
+            n_launch = warp_wide.LAUNCHES
+            _, plain_s = timed(lambda: plain.stabilize_clip(clip))
+            d = np.abs(got.astype(int) - want.astype(int))
+            res[preset] = {"offsets_err": float((a - b).abs().max()),
+                           "offsets_max": float(a.abs().max()),
+                           "sharded_modules": n_sharded,
+                           "lsb": int(d.max()),
+                           "share_off": float((d > 0).mean()),
+                           "launches": n_launch, "tp_chunk_ms": 1e3 * tp_s,
+                           "plain_chunk_ms": 1e3 * plain_s}
+        with open(os.path.join(work_dir, f"tp{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase11_tp(seed: int, dev, work_dir: str) -> dict:
+    """(c) Tensor parallelism: two gloo ranks sharing cuda:0 on a (1, 2)
+    ("data", "model") mesh, both presets at full width: offsets within
+    ``TP_TOL`` of the unsharded model, a 720p chunk within 1 LSB of
+    ``stabilize_clip`` with one launch, the chunk's time against
+    unsharded (no gate)."""
+    import pickle
+    from dvsg_tpu_torch.parallel.dryrun import run_ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_ranks(_p11_tp_rank, TP_RANKS, args=(TP_RANKS, os.path.join(
+        work_dir, "tp_store"), work_dir, seed, str(dev)), timeout_s=900)
+    res = {"spawn_s": time.perf_counter() - t0}
+    for r in range(TP_RANKS):
+        with open(os.path.join(work_dir, f"tp{r}.pkl"), "rb") as f:
+            got = pickle.load(f)
+        for preset, g in got.items():
+            if (g["offsets_err"] > TP_TOL or g["lsb"] > 1
+                    or g["launches"] != 1 or g["sharded_modules"] < 1
+                    or g["offsets_max"] < 1e-4):
+                raise AssertionError(f"[{preset}] TP rank {r} of "
+                                     f"{TP_RANKS}: {g}")
+            log(f"  [{preset}] TP rank {r} of {TP_RANKS} (gloo, cuda:0): "
+                f"{g['sharded_modules']} sharded modules, offsets within "
+                f"{g['offsets_err']:.2e} of unsharded (|max| "
+                f"{g['offsets_max']:.3f}), 720p chunk {g['lsb']} LSB from "
+                f"stabilize_clip ({g['share_off']:.2e} of bytes off), "
+                f"{g['launches']} launch; chunk {g['tp_chunk_ms']:.1f} ms "
+                f"sharded vs {g['plain_chunk_ms']:.1f} ms unsharded, end to "
+                f"end")
+            res[f"{preset}_rank{r}"] = g
+    return res
+
+
+def phase11_examples(dev, work_dir: str) -> dict:
+    """(d) Every port example as a subprocess on ``dev``'s device type, all
+    started together, each checked for its line; those needing OpenCV only
+    where it imports."""
+    cv2_ok = have_opencv()
+    procs, res = [], {}
+    for script, args, line, needs_cv2 in EXAMPLES:
+        name = " ".join((script,) + args)
+        if needs_cv2 and not cv2_ok:
+            log(f"  {name}: not run, OpenCV does not import here")
+            res[name] = "not run: no OpenCV"
+            continue
+        if script.startswith("03"):
+            args += ("--out", os.path.join(work_dir, "served.mp4"))
+        procs.append((name, line, time.perf_counter(), subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "examples", "torch",
+                                          script), *args, "--device",
+             dev.type], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    for name, line, t0, proc in procs:
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode != 0 or line not in out:
+            raise AssertionError(f"example {name} on {dev.type}: exit "
+                                 f"{proc.returncode}, no {line!r} in its "
+                                 f"output:\n{out[-1500:]}\n{err[-3000:]}")
+        said = next(x for x in out.splitlines() if line in x)
+        res[name] = {"s": time.perf_counter() - t0, "line": said}
+        log(f"  {name}: {said}")
+    return res
+
+
+def phase11_quality(dev) -> dict:
+    """(e) The quality table's sway and handheld rows on the card, held to
+    the gates of tests/test_torch_quality_table.py."""
+    import importlib.util
+    if not have_opencv():
+        log("  quality table: not run, OpenCV does not import here")
+        return {"not run": "no OpenCV"}
+    spec = importlib.util.spec_from_file_location(
+        "quality_table_torch", os.path.join(ROOT, "scripts",
+                                            "quality_table_torch.py"))
+    qt = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qt)
+    params, mcfg = load_npz(os.path.join(ROOT, "checkpoints",
+                                         "flagship_fast.npz"))
+    rows = {name: qt.measure(name, qt.make_fixture(name, device=dev),
+                             params, mcfg, SMOOTH, device=dev)
+            for name in ("sway", "handheld")}
+    sway, hand = rows["sway"], rows["handheld"]
+    gates = {
+        "sway stability": sway["stability_smooth"]
+        > sway["stability_plain"] + 0.04,
+        "sway t_rms": sway["t_rms_smooth"] < 0.60 * sway["t_rms_plain"],
+        "sway crop": sway["crop_smooth"] >= 0.99,
+        "sway distortion": sway["distortion_smooth"] >= 0.99,
+        "handheld stability": hand["stability_smooth"]
+        >= hand["stability_plain"] - 0.005,
+        "handheld t_rms": hand["t_rms_smooth"] < 0.85 * hand["t_rms_plain"],
+        "handheld crop": hand["crop_smooth"] >= 0.995,
+        "handheld distortion": hand["distortion_smooth"] >= 0.99}
+    for name, row in rows.items():
+        log(f"  quality table on the card, {name}: {row}")
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"quality gates failed on the card: {failed}: "
+                             f"{rows}")
+    return rows
+
+
+def phase_last_modules(seed: int, dev, work_dir: str):
+    """Phase 11: staging, export for the card from a process without one,
+    tensor parallelism, the examples and the quality table. Returns (B1
+    launches, results)."""
+    results = {"staging": phase11_staging(dev)}
+    launches, results["cross_export"] = phase11_cross_export(seed, dev,
+                                                             work_dir)
+    results["tp"] = phase11_tp(seed, dev, work_dir)
+    results["examples"] = phase11_examples(dev, work_dir)
+    results["quality"] = phase11_quality(dev)
+    return launches, results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2851,6 +3218,13 @@ def main(argv=None) -> int:
     for k, v in p10_train.items():
         train_counts[k] += v
 
+    log("== phase 11: staging, export for the card without one, tensor "
+        "parallelism, examples, quality table")
+    with tempfile.TemporaryDirectory() as work_dir:
+        p11_launches, p11_results = phase_last_modules(args.seed, dev,
+                                                       work_dir)
+    launches += p11_launches
+
     def entry(name, source, replaces, n_launches, err, rec):
         return {"name": name, "route": "cuda",
                 "source": f"dvsg_tpu_torch/csrc/{source}.cu",
@@ -2886,7 +3260,7 @@ def main(argv=None) -> int:
               "presets": results, "smoothing": smooth_results,
               "training": train_results, "batch": batch_results,
               "parallel_export": p9_results,
-              "bf16_stacked": p10_results,
+              "bf16_stacked": p10_results, "last_modules": p11_results,
               "eval": eval_results, "build_s": build_s, "ptxas": ptxas,
               "build_each_s": build_each,
               "wall_s": time.perf_counter() - t_start}

@@ -9,6 +9,8 @@
       --inputs a.mp4 b.mp4 c.mp4 d.mp4 --outputs ...   (one clip per card)
   python -m dvsg_tpu_torch export --preset fast --size 720 1280 \\
       --output fast_720p.dvsgt
+  python -m dvsg_tpu_torch export --preset fast --size 720 1280 \\
+      --for-platform cuda --output fast_720p.dvsgt   (on a host without a card)
   python -m dvsg_tpu_torch stabilize --artifact fast_720p.dvsgt \\
       --input shaky.mp4 --output stable.mp4
   python -m dvsg_tpu_torch train --checkpoint ckpt/ --steps 1000
@@ -35,6 +37,7 @@ pallas|lax`` is refused with exit code 2: the port has one warp route.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import sys
 import time
@@ -777,7 +780,10 @@ def eval_main(argv=None) -> int:
 
 def export_main(argv=None) -> int:
     """Export the chunk step with its weights into the port's artifact
-    (export.py), for ``stabilize --artifact`` or ``export.load_exported``."""
+    (export.py), for ``stabilize --artifact`` or ``export.load_exported``.
+    ``--for-platform cuda`` writes the card's artifact from any host, one
+    without a card included; unlike the reference's ``--for-platform`` it
+    picks no warp route, since the port has one."""
     p = argparse.ArgumentParser(
         prog="python -m dvsg_tpu_torch export",
         description="Export the per-chunk stabilization program (weights "
@@ -797,6 +803,12 @@ def export_main(argv=None) -> int:
     p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda",
                    help="device the program is traced for and runs on "
                         "(default cuda)")
+    p.add_argument("--for-platform", choices=("cuda", "cpu"), default=None,
+                   metavar="PLAT",
+                   help="export for this device type from any host instead "
+                        "of tracing on --platform: 'cuda' traces for the "
+                        "card under fake tensors, so a build host without "
+                        "one can ship the card's artifact")
     p.add_argument("--border-crop", type=float, default=0.0)
     p.add_argument("--strength", type=float, default=1.0)
     _add_smooth_args(p)
@@ -813,8 +825,9 @@ def export_main(argv=None) -> int:
         cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
                               border_crop=args.border_crop,
                               strength=args.strength, **_smooth_kwargs(args))
-        exp = export_lib.export_chunk_program(cfg, params, h, w,
-                                              device=args.platform)
+        exp = export_lib.export_chunk_program(
+            cfg, params, h, w, device=args.platform,
+            for_device=args.for_platform)
     except ValueError as e:
         return _err(str(e))
     export_lib.save_exported(exp, args.output, cfg,
@@ -826,16 +839,43 @@ def export_main(argv=None) -> int:
     return 0
 
 
+def _friendly_errors(fn):
+    """The reference CLI's handling of expected user errors: a missing
+    file prints ``ERROR: not found: <path>``, an I/O or value error
+    ``ERROR: <message>``, each on stderr with exit code 2, no traceback."""
+    @functools.wraps(fn)
+    def wrapped(argv=None):
+        try:
+            return fn(argv)
+        except FileNotFoundError as e:
+            return _err(f"not found: {e}")
+        except (IOError, ValueError) as e:
+            return _err(str(e))
+    return wrapped
+
+
+stabilize_main = _friendly_errors(stabilize_main)
+stabilize_batch_main = _friendly_errors(stabilize_batch_main)
+train_main = _friendly_errors(train_main)
+eval_main = _friendly_errors(eval_main)
+export_main = _friendly_errors(export_main)
+
 _COMMANDS = {"stabilize": stabilize_main,
              "stabilize-batch": stabilize_batch_main, "train": train_main,
              "eval": eval_main, "export": export_main}
 
 
 def main(argv=None) -> int:
+    """The reference's exits: usage on stdout with 0 for ``-h``/``--help``
+    and 1 for no arguments, 2 for an unknown command."""
     argv = sys.argv[1:] if argv is None else list(argv)
-    if not argv or argv[0] not in _COMMANDS:
+    if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m dvsg_tpu_torch "
-              "{stabilize,stabilize-batch,train,eval,export} "
-              "[options]", file=sys.stderr)
+              "{stabilize|stabilize-batch|train|eval|export} [args]\n"
+              "       see --help of each subcommand")
+        return 0 if argv else 1
+    if argv[0] not in _COMMANDS:
+        print(f"unknown command {argv[0]!r}; expected "
+              "stabilize|stabilize-batch|train|eval|export", file=sys.stderr)
         return 2
     return _COMMANDS[argv[0]](argv[1:])

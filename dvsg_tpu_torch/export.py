@@ -29,14 +29,23 @@ and with ``cfg.path_smooth > 0`` a (4,) f32 smoothing state in and out:
 
 A batch artifact takes the same with a leading clip axis. The fixed-lag
 mode is not exported (its signature has no slot for the delayed frames).
-An artifact runs on the device type it was traced on; exporting for the
-card from a host without one is not supported.
+An artifact runs on the device type it was traced for.
+
+``for_device="cuda"`` exports for the card from any host, one without a
+card included: the step is traced under fake CUDA tensors, so every branch
+on the device (cuDNN's bf16 convolution, the fixed-size calls of
+ops/grouped.py) takes its card side. The weights and the shape-keyed
+tables are built real on the CPU and stored in the file as such; loading
+on the card puts them there. The JAX package picks a warp route for the
+target platform (``resolve_cfg_platforms``); the port has one route, the
+registered op, so there is nothing to pick.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import io
+import itertools
 import json
 import struct
 import sys
@@ -45,6 +54,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+from torch.overrides import TorchFunctionMode
 
 from dvsg_tpu_torch import resolve_device
 from dvsg_tpu_torch.config import (StabilizeConfig, config_to_json,
@@ -132,30 +143,177 @@ def _export(cfg: StabilizeConfig, params: dict, lead: tuple, height: int,
                     time.perf_counter() - t0)
 
 
+# The device a trace for the card runs on. An index is needed: without one,
+# placing a tensor asks the CUDA runtime which card is current.
+_CARD = torch.device("cuda", 0)
+_aten = torch.ops.aten
+_CASTS = {"float": torch.float32, "bfloat16": torch.bfloat16,
+          "long": torch.int64, "int": torch.int32, "double": torch.float64,
+          "half": torch.float16, "bool": torch.bool, "byte": torch.uint8}
+
+
+def _getitem(x: torch.Tensor, index) -> torch.Tensor:
+    """``x[index]`` as the aten ops PyTorch's indexing applies: integers
+    select, slices slice, None unsqueezes, and tensors index afterwards
+    with the sliced dimensions left in place."""
+    index = index if isinstance(index, tuple) else (index,)
+    used = sum(i is not None and i is not Ellipsis for i in index)
+    out, dim, advanced = x, 0, []
+    for i in index:
+        if i is Ellipsis:
+            k = x.dim() - used
+            advanced += [None] * k
+            dim += k
+        elif i is None:
+            out = out.unsqueeze(dim)
+            advanced.append(None)
+            dim += 1
+        elif isinstance(i, int) and not isinstance(i, bool):
+            out = out.select(dim, i)
+        elif isinstance(i, slice):
+            out = _aten.slice.Tensor(out, dim, i.start, i.stop,
+                                     1 if i.step is None else i.step)
+            advanced.append(None)
+            dim += 1
+        elif isinstance(i, torch.Tensor) and i.dtype != torch.bool:
+            advanced.append(i)
+            dim += 1
+        else:
+            raise TypeError(f"index {i!r} is not traced for the card")
+    while advanced and advanced[-1] is None:
+        advanced.pop()
+    return _aten.index.Tensor(out, advanced) if advanced else out
+
+
+class _CardMethods(TorchFunctionMode):
+    """Tensor methods whose Python bindings take a CUDA device guard, which
+    a build of torch without CUDA cannot give, not even to a fake tensor:
+    on fake CUDA tensors they run as the aten ops they stand for
+    (indexing, ``to`` and the casts as ``_to_copy``, ``contiguous`` as a
+    clone). The trace records the same ops either way."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        x = args[0] if args else None
+        if not (isinstance(x, FakeTensor) and x.is_cuda):
+            return func(*args, **kwargs)
+        name = getattr(func, "__name__", "")
+        if func is torch.Tensor.__getitem__:
+            return _getitem(x, args[1])
+        if func is torch.Tensor.to:
+            dev, dtype, _, fmt = torch._C._nn._parse_to(*args[1:], **kwargs)
+            if (dev in (None, x.device) and dtype in (None, x.dtype)
+                    and fmt is None):
+                return x
+            return _aten._to_copy.default(
+                x, dtype=dtype or x.dtype, device=dev or x.device,
+                memory_format=fmt)
+        if name == "contiguous" and not args[1:] and not kwargs:
+            return x if x.is_contiguous() else _aten.clone.default(
+                x, memory_format=torch.contiguous_format)
+        if name in _CASTS and not args[1:] and not kwargs:
+            dtype = _CASTS[name]
+            return x if x.dtype == dtype else _aten._to_copy.default(
+                x, dtype=dtype)
+        return func(*args, **kwargs)
+
+
+def _export_for_card(cfg: StabilizeConfig, params: dict, lead: tuple,
+                     height: int, width: int, nr_devices: int) -> Exported:
+    """Trace the chunk step for the card under fake CUDA tensors (no card
+    needed). The program's weights are the real CPU parameters, and the
+    tables it builds from numpy are real CPU constants that the graph
+    copies to the card."""
+    prog = _ChunkProgram(cfg, build_model(cfg.model, params,
+                                          torch.device("cpu")),
+                         batched=bool(lead))
+    real = dict(prog.named_parameters())
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    with mode:
+        for mod in prog.modules():
+            for name, p in list(mod._parameters.items()):
+                mod._parameters[name] = torch.nn.Parameter(
+                    mode.from_tensor(p.detach()).to(_CARD),
+                    requires_grad=False)
+        c = cfg.model.channels
+        mh, mw = cfg.model.model_size
+        args = (torch.empty(lead + (cfg.chunk_frames, height, width, c),
+                            dtype=torch.uint8, device=_CARD),
+                torch.empty(lead + (cfg.model.window - 1, mh, mw, c),
+                            device=_CARD))
+        if cfg.path_smooth > 0:
+            args += (torch.empty(lead + (pathsmooth.STATE_DIM,),
+                                 device=_CARD),)
+    t0 = time.perf_counter()
+    with _CardMethods():
+        program = torch.export.export(prog, args)
+    export_s = time.perf_counter() - t0
+    if set(program.state_dict) != set(real):
+        raise RuntimeError("the traced program's weights are not the "
+                           "model's: " + str(sorted(set(program.state_dict)
+                                                    ^ set(real))))
+    for name, t in real.items():
+        program.state_dict[name] = torch.nn.Parameter(t.detach(),
+                                                      requires_grad=False)
+    fake = [k for k, v in program.constants.items()
+            if isinstance(v, FakeTensor)]
+    if fake:
+        raise RuntimeError(f"constants {fake} of the trace for the card "
+                           "have no values")
+    program.example_inputs = None
+    outs = next(n for n in program.graph.nodes if n.op == "output").args[0]
+    return Exported(program, _CARD, nr_devices, _avals(args),
+                    _avals([n.meta["val"] for n in outs]), export_s)
+
+
+def _export_any(cfg: StabilizeConfig, params: dict, lead: tuple,
+                height: int, width: int, device, for_device,
+                nr_devices: int) -> Exported:
+    if for_device is None:
+        return _export(cfg, params, lead, height, width, device, nr_devices)
+    target = torch.device(for_device)
+    if target.type == "cuda":
+        return _export_for_card(cfg, params, lead, height, width,
+                                nr_devices)
+    if target.type != "cpu":
+        raise ValueError(f"for_device must be cuda or cpu, got "
+                         f"{for_device!r}")
+    return _export(cfg, params, lead, height, width, target, nr_devices)
+
+
 def export_chunk_program(cfg: StabilizeConfig, params: dict, height: int,
-                         width: int, device="cuda") -> Exported:
+                         width: int, device="cuda",
+                         for_device: Optional[str] = None) -> Exported:
     """Export the single-clip chunk step with ``params`` inside, for
-    (cfg.chunk_frames, height, width, C) uint8 chunks on ``device``."""
+    (cfg.chunk_frames, height, width, C) uint8 chunks on ``device``; or,
+    with ``for_device``, for that device type from this host whatever it
+    has (``"cuda"``: traced under fake CUDA tensors, no card needed)."""
     pathsmooth.lag_reject(
         cfg, "AOT export (the artifact signature has no shifted-emission "
              "slot; export the causal smoother instead)")
-    return _export(cfg, params, (), height, width, resolve_device(device), 1)
+    dev = None if for_device is not None else resolve_device(device)
+    return _export_any(cfg, params, (), height, width, dev, for_device, 1)
 
 
 def export_batch_program(cfg: StabilizeConfig, params: dict, n_clips: int,
                          height: int, width: int,
                          mesh: Optional[mesh_lib.Mesh] = None,
-                         device="cuda") -> Exported:
+                         device="cuda",
+                         for_device: Optional[str] = None) -> Exported:
     """Export the batched chunk step for ``n_clips`` clips: with a mesh,
     the step of one rank's n_clips/n clips (every rank of the mesh loads
     the same artifact for its shard; the header records n); without one,
-    all clips on ``device``."""
+    all clips on ``device``. ``for_device`` as in
+    ``export_chunk_program``."""
     pathsmooth.lag_reject(cfg, "AOT batch export")
     n = 1 if mesh is None else mesh.size
     if n_clips % n:
         raise ValueError(f"n_clips {n_clips} must divide over {n} devices")
-    dev = resolve_device(device) if mesh is None else mesh.device
-    return _export(cfg, params, (n_clips // n,), height, width, dev, n)
+    dev = None
+    if for_device is None:
+        dev = resolve_device(device) if mesh is None else mesh.device
+    return _export_any(cfg, params, (n_clips // n,), height, width, dev,
+                       for_device, n)
 
 
 def save_exported(exp: Exported, path: str, cfg: StabilizeConfig,
@@ -346,16 +504,21 @@ def load_exported(path: str, device=None,
     """Read an artifact file, check its header, load the program.
 
     It runs on ``device`` (default: the mesh's device, else the device it
-    was exported on), which must be of the type it was exported for; a
-    batch artifact cut for n ranks needs a mesh of n. Raises
-    ``ValueError`` on a file that is not the port's artifact, a truncated
-    file or an unsupported format version; warns (stderr) when the
-    artifact was made under another torch version.
+    was exported for), which must be of the type it was exported for; a
+    batch artifact cut for n ranks needs a mesh of n. Its weights and
+    tables are put on that device. Raises ``ValueError`` on a file that is
+    not the port's artifact, a truncated file or an unsupported format
+    version, and ``RuntimeError`` for a card's device on a host without
+    one; warns (stderr) when the artifact was made under another torch
+    version.
     """
     meta, blob = read_header(path)
     made_on = torch.device(meta["device"])
     if device is None:
         device = mesh.device if mesh is not None else made_on
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{path} was exported for the card (cuda) and "
+                           "runs only there; this host has no CUDA device")
     dev = resolve_device(device)
     if dev.type != made_on.type:
         raise ValueError(f"{path} was exported for {made_on.type}, not "
@@ -372,7 +535,10 @@ def load_exported(path: str, device=None,
               f"{torch.__version__}; export it again if loading or running "
               "it fails", file=sys.stderr)
     program = torch.export.load(io.BytesIO(blob))
-    if dev != made_on:
+    tensors = itertools.chain(program.state_dict.values(),
+                              program.constants.values())
+    if dev != made_on or any(isinstance(t, torch.Tensor) and t.device != dev
+                             for t in tensors):
         from torch.export.passes import move_to_device_pass
         program = move_to_device_pass(program, str(dev))
     return ExportedStabilizer(program, meta, dev, mesh)

@@ -9,7 +9,14 @@ one process, with or without a process group, is a valid mesh of one rank.
 Axes:
   * ``data``  — per-clip / per-sample data parallelism, and the frame axis
     of temporal sharding (parallel/temporal.py).
-  * ``model`` — reserved for tensor parallelism (not in the port yet).
+  * ``model`` — tensor parallelism: each rank of a ``model`` axis computes
+    a share of the conv output channels (``tp_param_sharding``,
+    parallel/tp.py).
+
+Ranks lie on the mesh in row-major order; a mesh of several axes also
+holds, for each axis, the process group of the ranks that differ from this
+one along that axis only (``Mesh.along``), which that axis's collectives
+use.
 
 Every rank holds the whole host input and computes its own shard; the
 helpers below move the shards between ranks. A CUDA tensor crosses a gloo
@@ -50,6 +57,7 @@ class Mesh:
     rank: Optional[int]
     device: torch.device
     group: Any = None
+    axis_groups: Tuple[Any, ...] = ()
 
     @property
     def size(self) -> int:
@@ -70,6 +78,21 @@ class Mesh:
                              f"{self.size} devices")
         k = n // self.size
         return slice(self.rank * k, (self.rank + 1) * k)
+
+    def along(self, axis: str) -> "Mesh":
+        """The 1-D mesh of the ranks that differ from this one along
+        ``axis`` only, with this rank's place on that axis; its collectives
+        run in that axis's process group."""
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh has no {axis!r} axis: {self.axis_names}")
+        if self.rank is None:
+            raise ValueError("this process is not in the mesh")
+        if len(self.shape) == 1:
+            return self
+        i = self.axis_names.index(axis)
+        coord = int(np.unravel_index(self.rank, self.shape)[i])
+        group = self.axis_groups[i] if self.axis_groups else None
+        return Mesh((self.shape[i],), (axis,), coord, self.device, group)
 
 
 def world_size() -> int:
@@ -120,15 +143,55 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
         raise ValueError(f"mesh shape {shape} needs {n} devices, "
                          f"have {world}")
     names = tuple(axis_names[:len(shape)])
+    if len(names) != len(shape) or len(set(names)) != len(names):
+        raise ValueError(f"mesh shape {shape} needs {len(shape)} distinct "
+                         f"axis names, got {tuple(axis_names)}")
     dev = rank_device(device)
     if not dist.is_initialized():
         return Mesh(shape, names, 0, dev)
     group = dist.group.WORLD if n == world else dist.new_group(
         list(range(n)))
     rank = dist.get_rank()
+    axis_groups = _axis_groups(shape, rank) if len(shape) > 1 else ()
     if rank >= n:
         return Mesh(shape, names, None, dev)
-    return Mesh(shape, names, rank, dev, group)
+    return Mesh(shape, names, rank, dev, group, axis_groups)
+
+
+def _axis_groups(shape: Tuple[int, ...], rank: int) -> Tuple[Any, ...]:
+    """For each axis, the process group of the ranks that share every other
+    coordinate with ``rank`` (None where the axis has one rank, or where
+    ``rank`` is outside the mesh). Creating a group is collective: every
+    rank of the world creates every group, in the same order."""
+    ranks = np.arange(math.prod(shape)).reshape(shape)
+    out = []
+    for i, k in enumerate(shape):
+        lines = np.moveaxis(ranks, i, -1).reshape(-1, k)
+        mine = None
+        for line in lines:
+            g = dist.new_group(line.tolist()) if k > 1 else None
+            if rank in line:
+                mine = g
+        out.append(mine)
+    return tuple(out)
+
+
+def tp_param_sharding(mesh: Mesh, params: dict) -> dict:
+    """Tensor-parallel sharding spec of a ``MotionEstimator`` state dict:
+    the reference's rule on torch's layouts. A conv kernel, (cout, cin, kh,
+    kw), whose output-channel count is a multiple of the ``model`` axis's
+    size shards dim 0 over ``model``: ``(MODEL_AXIS, None, None, None)``.
+    Every other leaf (biases, GroupNorm scales and shifts, a kernel whose
+    count is not) is replicated: ``()``. parallel/tp.py runs the model this
+    spec describes. Raises ``ValueError`` on a mesh without a ``model``
+    axis."""
+    if MODEL_AXIS not in mesh.axis_names:
+        raise ValueError(f"mesh has no {MODEL_AXIS!r} axis: "
+                         f"{mesh.axis_names}")
+    n_model = mesh.shape[mesh.axis_names.index(MODEL_AXIS)]
+    return {name: ((MODEL_AXIS, None, None, None)
+                   if t.dim() == 4 and t.shape[0] % n_model == 0 else ())
+            for name, t in params.items()}
 
 
 def init_distributed(coordinator: Optional[str] = None,

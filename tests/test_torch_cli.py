@@ -161,9 +161,43 @@ def test_dtype_bfloat16_runs_the_bf16_model(tmp_path, command):
 
 
 def test_usage_names_every_command(capsys):
-    assert cli.main([]) == 2
-    err = capsys.readouterr().err
-    assert "stabilize-batch" in err and "eval" in err
+    assert cli.main([]) == 1
+    out = capsys.readouterr().out
+    assert "stabilize-batch" in out and "eval" in out
+
+
+@pytest.mark.parametrize("argv", [[], ["-h"], ["--help"], ["bench"]],
+                         ids=["none", "-h", "--help", "unknown"])
+def test_main_exits_as_the_reference(argv, capsys):
+    """0 for help, 1 for no arguments (usage on stdout), 2 for an unknown
+    command with the reference's message."""
+    from dvsg_tpu import cli as jcli
+    rc = cli.main(argv)
+    port = capsys.readouterr()
+    assert rc == jcli.main(argv)
+    ref = capsys.readouterr()
+    assert bool(port.out) == bool(ref.out) and bool(port.err) == bool(ref.err)
+    assert port.err == ref.err
+
+
+@pytest.mark.parametrize("argv", [
+    ["stabilize", "--input", "/nonexistent.mp4", "--output", "o.mp4"],
+    ["stabilize-batch", "--inputs", "/nonexistent.mp4", "--outputs",
+     "o.mp4"],
+    ["train", "--checkpoint", "{tmp}/ck", "--steps", "1", "--batch-size",
+     "1", "--data", "/nonexistent.mp4", *TINY],
+    ["stabilize", "--input", "{tmp}", "--output", "{tmp}/o.mp4"],
+], ids=["stabilize", "stabilize-batch", "train", "empty-dir"])
+def test_user_errors_exit_as_the_reference(argv, tmp_path, capsys):
+    """A missing input prints the reference's one line (``ERROR: not found:
+    <path>``) and exits 2, with no traceback."""
+    from dvsg_tpu import cli as jcli
+    argv = [a.format(tmp=tmp_path) for a in argv] + ["--platform", "cpu"]
+    rc = cli.main(argv)
+    port = capsys.readouterr().err.strip().splitlines()[-1]
+    assert rc == jcli.main(argv) == 2
+    ref = capsys.readouterr().err.strip().splitlines()[-1]
+    assert port == ref and port.startswith("ERROR: not found: ")
 
 
 # --- stabilize-batch ---------------------------------------------------------

@@ -570,6 +570,71 @@ def test_world_of_one_over_nccl(dev, tmp_path):
         dist.destroy_process_group()
 
 
+def test_artifact_exported_without_a_card_runs_on_the_card(dev, tmp_path):
+    """A process that sees no card exports the chunk step for the card
+    (plain and smoothed); loaded here, its frames equal the live path's
+    bytewise, with one launch a chunk."""
+    import os
+    import subprocess
+    import sys
+    from dvsg_tpu_torch import export as export_lib
+    from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
+    from dvsg_tpu_torch.utils import checkpoint as ckpt
+    cfg, params, clip = _smooth_setup()
+    npz = str(tmp_path / "m.npz")
+    ckpt.export_npz(npz, params, cfg.model)
+    for c in (cfg.replace(path_smooth=0), cfg):
+        path = str(tmp_path / f"m{c.path_smooth}.dvsgt")
+        code = ("import sys, torch; assert not torch.cuda.is_available(); "
+                "from dvsg_tpu_torch.cli import main; "
+                "sys.exit(main(sys.argv[1:]))")
+        r = subprocess.run(
+            [sys.executable, "-c", code, "export", "--checkpoint", npz,
+             "--size", str(clip.shape[1]), str(clip.shape[2]),
+             "--chunk-frames", str(c.chunk_frames), "--path-smooth",
+             str(c.path_smooth), "--for-platform", "cuda", "--output",
+             path], env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            capture_output=True, text=True, timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        loaded = export_lib.load_exported(path)
+        assert loaded.device == dev
+        before = warp_wide.LAUNCHES
+        got = loaded.stabilize_clip(clip)
+        torch.cuda.synchronize()
+        assert warp_wide.LAUNCHES - before == -(-len(clip) // c.chunk_frames)
+        np.testing.assert_array_equal(
+            got, Stabilizer(c, params, device=dev).stabilize_clip(clip))
+
+
+def test_tensor_parallel_on_the_card(dev, tmp_path):
+    """Two gloo ranks sharing the card on a (1, 2) ("data", "model")
+    mesh: offsets within 2e-5 of the unsharded model, a clip through the
+    TP chunk step within 1 LSB of stabilize_clip."""
+    import torch_ranks
+    from dvsg_tpu_torch.models import motion_cnn
+    from dvsg_tpu_torch.pipeline.stabilize import Stabilizer, build_model
+    cfg, params, clip = _smooth_setup()
+    cfg = cfg.replace(path_smooth=0)
+    rng = np.random.default_rng(4)
+    mh, mw = cfg.model.model_size
+    windows = (rng.random((4, mh, mw, 3 * cfg.model.window), np.float32)
+               - 0.5).astype(np.float32)
+    ranks = torch_ranks.spawn("tp", 2, tmp_path, {
+        "cfg": cfg, "params": params, "shapes": ((1, 2),),
+        "windows": windows, "clip": clip, "clips": clip[None],
+        "device": "cuda:0"})
+    with torch.inference_mode():
+        want = motion_cnn.predict_offsets(
+            build_model(cfg.model, params, dev),
+            torch.from_numpy(windows).to(dev)).cpu().numpy()
+    frames = Stabilizer(cfg, params, device=dev).stabilize_clip(clip)
+    for r in ranks:
+        g = r["1x2"]
+        np.testing.assert_allclose(g["offsets"], want, atol=2e-5)
+        assert int(np.abs(g["clip"].astype(int)
+                          - frames.astype(int)).max()) <= 1
+
+
 # --- bf16 compute and the stacked arch ------------------------------------
 
 def _variant(mcfg, variant: str, params):

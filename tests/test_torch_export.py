@@ -304,6 +304,102 @@ def test_live_step_after_an_export_without_warm_up(frames):
         assert type(g) is torch.Tensor and torch.equal(g, w)
 
 
+# --- export for the card from a host without one ----------------------------
+
+@pytest.fixture(scope="module")
+def card_artifacts(tmp_path_factory):
+    """The single-clip step of each mode exported for the card on this
+    host, which has none."""
+    d = tmp_path_factory.mktemp("card")
+    out = {}
+    for mode, kw in MODES.items():
+        cfg = CFG.replace(**kw)
+        out[mode] = str(d / f"{mode}.dvsgt")
+        export_lib.save_exported(export_lib.export_chunk_program(
+            cfg, PARAMS, H, W, for_device="cuda"), out[mode], cfg)
+    return out
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_export_for_the_card_without_one(card_artifacts, frames, mode):
+    """The graph's inputs sit on cuda, its stored weights are the real
+    parameters, its tables real constants; moved to the CPU, the program
+    gives the live CPU step's bytes (the card's fixed-size calls give the
+    same bytes there)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.export.passes import move_to_device_pass
+    cfg = CFG.replace(**MODES[mode])
+    meta, blob = export_lib.read_header(card_artifacts[mode])
+    assert meta["device"] == "cuda:0"
+    program = torch.export.load(io.BytesIO(blob))
+    inputs = [s.arg.name for s in program.graph_signature.input_specs
+              if s.kind.name == "USER_INPUT"]
+    nodes = {n.name: n for n in program.graph.nodes}
+    assert [nodes[n].meta["val"].device.type for n in inputs] == \
+        ["cuda"] * len(meta["in_avals"])
+    for name, t in program.state_dict.items():
+        assert not isinstance(t, FakeTensor)
+        torch.testing.assert_close(t, PARAMS[name.removeprefix("model.")],
+                                   rtol=0, atol=0)
+    assert program.constants and not any(
+        isinstance(t, FakeTensor) for t in program.constants.values())
+    args = (torch.from_numpy(frames[:4]),
+            st.initial_halo(cfg, frames[0], "cpu"))
+    if cfg.path_smooth:
+        args += (pathsmooth.initial_state(),)
+    got = move_to_device_pass(program, "cpu").module()(*args)
+    model = st.build_model(MCFG, PARAMS, torch.device("cpu"))
+    with torch.inference_mode():
+        want = export_lib._ChunkProgram(cfg, model, batched=False)(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_export_for_the_card_takes_the_card_branches():
+    """bf16 convolutions stay bf16 in a trace for the card (cuDNN's f32
+    accumulation); the CPU's trace runs them in f32."""
+    import dataclasses
+    cfg = CFG.replace(model=dataclasses.replace(MCFG, dtype="bfloat16"))
+
+    def conv_dtypes(exp):
+        return {n.meta["val"].dtype for n in exp.program.graph.nodes
+                if n.target == torch.ops.aten.conv2d.default}
+    card = export_lib.export_batch_program(cfg, PARAMS, 2, H, W,
+                                           for_device="cuda")
+    cpu = export_lib.export_batch_program(cfg, PARAMS, 2, H, W,
+                                          device="cpu")
+    assert torch.bfloat16 in conv_dtypes(card)
+    assert torch.bfloat16 not in conv_dtypes(cpu)
+    assert card.in_avals[0] == cpu.in_avals[0] == [[2, 4, H, W, 3],
+                                                   "uint8"]
+
+
+def test_card_artifact_refused_without_a_card(card_artifacts):
+    with pytest.raises(RuntimeError, match="exported for the card"):
+        export_lib.load_exported(card_artifacts["plain"])
+    with pytest.raises(ValueError, match="exported for cuda, not cpu"):
+        export_lib.load_exported(card_artifacts["plain"], device="cpu")
+
+
+def test_for_device_cpu_is_the_cpu_export(tmp_path):
+    paths = [str(tmp_path / f"{k}.dvsgt") for k in ("device", "for_device")]
+    export_lib.save_exported(export_lib.export_chunk_program(
+        CFG, PARAMS, H, W, device="cpu"), paths[0], CFG)
+    export_lib.save_exported(export_lib.export_chunk_program(
+        CFG, PARAMS, H, W, for_device="cpu"), paths[1], CFG)
+    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_cli_exports_for_the_card(tmp_path, capsys):
+    path = str(tmp_path / "card.dvsgt")
+    assert cli.main(["export", "--preset", "fast", "--size", str(H), str(W),
+                     "--chunk-frames", "4", "--output", path,
+                     "--for-platform", "cuda"]) == 0
+    assert "program for cuda:0" in capsys.readouterr().out
+    assert export_lib.read_header(path)[0]["device"] == "cuda:0"
+
+
 # --- CLI ---------------------------------------------------------------------
 
 def _write_dir(path, frames):

@@ -28,10 +28,20 @@ def _port_modules():
     return sorted(mods) + ["chip_smoke"]
 
 
+def _port_scripts():
+    """The port's scripts and examples, by path."""
+    ex = os.path.join(ROOT, "examples", "torch")
+    return [os.path.join(ROOT, "scripts", "quality_table_torch.py")] + sorted(
+        os.path.join(ex, f) for f in os.listdir(ex) if f.endswith(".py"))
+
+
 _PROBE = """
-import importlib, sys
+import importlib, importlib.util, sys
 for mod in {mods!r}:
     importlib.import_module(mod)
+for i, path in enumerate({scripts!r}):
+    spec = importlib.util.spec_from_file_location(f"_script{{i}}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "dvsg_tpu"))
@@ -50,8 +60,13 @@ def test_port_imports_no_jax():
     assert {"dvsg_tpu_torch.parallel.dp", "dvsg_tpu_torch.serve",
             "dvsg_tpu_torch.parallel.mesh", "dvsg_tpu_torch.parallel.temporal",
             "dvsg_tpu_torch.parallel.dryrun", "dvsg_tpu_torch.export",
-            "dvsg_tpu_torch.utils.profiling"} <= set(mods)
-    res = subprocess.run([sys.executable, "-c", _PROBE.format(mods=mods)],
+            "dvsg_tpu_torch.utils.profiling", "dvsg_tpu_torch.parallel.tp",
+            "dvsg_tpu_torch.native.build",
+            "dvsg_tpu_torch.utils.staging"} <= set(mods)
+    scripts = _port_scripts()
+    assert len(scripts) == 8
+    res = subprocess.run([sys.executable, "-c",
+                          _PROBE.format(mods=mods, scripts=scripts)],
                          cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stderr
@@ -140,7 +155,7 @@ def test_no_source_of_the_port_names_jax_modules():
     import re
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|orbax|"
                      r"dvsg_tpu)(?:[.\s]|$)", re.M)
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py")] + _port_scripts()
     for dirpath, _, files in os.walk(os.path.join(ROOT, "dvsg_tpu_torch")):
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
@@ -161,5 +176,15 @@ def test_train_and_eval_default_to_the_card(command, tmp_path):
     res = subprocess.run([sys.executable, "-m", "dvsg_tpu_torch", command,
                           *args], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=120)
+    assert res.returncode != 0
+    assert "pass device='cpu'" in res.stderr
+
+
+def test_quality_table_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    res = subprocess.run([sys.executable, os.path.join(
+        ROOT, "scripts", "quality_table_torch.py")], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert "pass device='cpu'" in res.stderr

@@ -157,8 +157,41 @@ def multi_cases(rank, p):
     return res
 
 
+def tp_cases(rank, p):
+    """Tensor parallelism on each mesh shape of ``p["shapes"]`` that the
+    world holds (axes ("data", "model")), on ``p["device"]`` (default the
+    CPU): the sharding spec, offsets of a batch of windows (the data axis
+    takes its rows), a clip through the TP chunk step, and a clip batch
+    over the data axis."""
+    from dvsg_tpu_torch.models import motion_cnn
+    from dvsg_tpu_torch.parallel import tp
+    from dvsg_tpu_torch.pipeline.stabilize import build_model
+    res = {}
+    dev = torch.device(p.get("device", "cpu"))
+    for shape in p["shapes"]:
+        m = mesh_lib.make_mesh(shape, axis_names=("data", "model"),
+                               device=dev)
+        if m.rank is None:
+            continue
+        key = "x".join(map(str, shape))
+        model = build_model(p["cfg"].model, p["params"], dev)
+        sharded = tp.tp_model(model, m)
+        rows = m.along("data").shard(len(p["windows"]))
+        with torch.inference_mode():
+            offs = motion_cnn.predict_offsets(
+                sharded, torch.from_numpy(p["windows"][rows]).to(dev)).cpu()
+        stab = tp.TPStabilizer(p["cfg"], p["params"], m)
+        res[key] = {
+            "spec": mesh_lib.tp_param_sharding(m, p["params"]),
+            "rows": rows, "offsets": offs.numpy(),
+            "coords": (m.along("data").rank, m.along("model").rank),
+            "clip": stab.stabilize_clip(p["clip"]),
+            "clips": stab.stabilize_clips(p["clips"])}
+    return res
+
+
 CASES = {"sharded": sharded_cases, "temporal": temporal_cases,
-         "multi": multi_cases}
+         "multi": multi_cases, "tp": tp_cases}
 
 
 def _rank(rank, n, store, case, payload_path, out_dir):
