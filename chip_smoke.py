@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed 0]
 
 Needs one CUDA card (cuda:0), nvcc and the repository's sources; exits
-non-zero without a card or outside the repository. Phases, each raising
+non-zero without a card or outside the repository. Phase 12 uses every
+visible card (four at most). Phases, each raising
 on failure:
 
 1. card, power limit and versions; build every kernel with nvcc, one
@@ -128,7 +129,34 @@ on failure:
    subprocess on cuda, all together, each printing its line (those that
    need OpenCV only where it imports); (e) where OpenCV imports, the
    quality table's sway and handheld rows on the card, held to the gates
-   of tests/test_torch_quality_table.py.
+   of tests/test_torch_quality_table.py;
+12. the multi-rank surfaces over NCCL, one rank per card: 4 ranks where
+   the machine has four cards or more, 2 where it has two or three; with
+   one card a line says that the phase did not run, and nothing runs in
+   its place. Both presets, 1280x720, T = 16, every gate held against this
+   one process on cuda:0: (a) eight seeded 48-frame clips, two a rank on
+   four cards, through ``ShardedClipStabilizer`` (plain, causal, lag) and
+   ``stabilize_multi(mesh=)`` (plain, causal; each rank writes its own
+   clips), byte-equal to ``stabilize_clip``, one B1 launch per batched
+   chunk per rank; frames/s against the same batch on one card, each
+   rank's device idle share; (b) a seeded 96-frame clip through
+   ``TemporalShardedStabilizer`` (plain, causal) at T = 16 (four local
+   frames a rank: the halo-equal boundary) and T = 64, byte-equal, one
+   launch a chunk a rank; the chunk's ms against one card and the ms
+   inside ``mesh.ring_shift`` and ``mesh.all_gather`` (CUDA events); (c)
+   ``make_dp_train_step`` at batch 8, f32, 10 steps under cuDNN's
+   deterministic algorithms: every loss within rtol 1e-5 of
+   ``train_step``, the first step's parameters within 1e-6 and gradients
+   within 1e-3 of each tensor's largest, a second run byte-equal to the
+   first on every rank, every rank's parameters equal, one B2 and one B3
+   pair a step a rank; steps/s against one card; (d) tensor parallelism on
+   (1, n) and (2, n/2) ("data", "model") meshes: offsets within 2e-5 of one
+   process, a chunk within 1 LSB of ``stabilize_clip``, one launch a rank,
+   the chunk's ms and the ms inside ``tp.gather_channels``; (e) ``python
+   -m dvsg_tpu_torch.parallel.dryrun n`` over NCCL, one rank a card, and,
+   where OpenCV imports, ``stabilize-batch`` under ``torchrun`` over four
+   seeded mp4s byte-equal to the same command with ``--no-mesh``, each
+   rank writing its own clip on its own card.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes every
@@ -3139,6 +3167,715 @@ def phase_last_modules(seed: int, dev, work_dir: str):
     return launches, results
 
 
+# --- phase 12: the multi-rank surfaces over NCCL, one rank per card --------
+
+# The DP gates of phase 12, as phase 9 (b)'s: tests/test_parallel.py's own
+# bounds (every loss within rtol 1e-5, the first step's parameters within
+# 1e-6), the first step's gradient within 1e-3 of each tensor's largest
+# (the ranks sum it in another order than one process).
+DP_LOSS_RTOL, DP_PARAM_TOL, DP_GRAD_TOL = 1e-5, 1e-6, 1e-3
+# The losses are held over the steps phase 9 (b) holds: the first (its
+# rate is the schedule's first, 0) and the first update. After it the
+# ranks' and one process's parameters part: Adam's m / sqrt(v) amplifies
+# the rounding of near-zero gradients, summed in another order; the later
+# steps' losses and the last parameters are recorded, not held.
+DP_GATED_STEPS = 2
+# (e): the seeded mp4s of stabilize-batch under torchrun, and their length.
+P12_MP4S, P12_MP4_FRAMES = 4, 32
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiCard:
+    """Phase 12's work and its sizes. ``presets``: (name, .npz path); every
+    rank drives ``device`` (``cuda``: the card of its rank) in a
+    ``backend`` group. The CPU tests run the same code at a small size on
+    gloo ranks."""
+
+    presets: tuple
+    device: str = "cuda"
+    backend: str = "nccl"
+    height: int = HEIGHT
+    width: int = WIDTH
+    chunk: int = T_CHUNK
+    clips: int = 8                      # (a): two a rank on four cards
+    clip_frames: int = 48
+    long_frames: int = 96               # (b): one clip, frames sharded
+    temporal_chunks: tuple = (T_CHUNK, 64)
+    smooth: int = SMOOTH
+    lag: int = LAG
+    steps: int = 10                     # (c)
+    batch: int = TRAIN_BATCH
+    tp_windows: int = TP_WINDOWS        # (d)
+
+    def modes(self, mcfg) -> dict:
+        base = StabilizeConfig(model=mcfg, chunk_frames=self.chunk)
+        return {"plain": base,
+                "causal": base.replace(path_smooth=self.smooth),
+                "lag": base.replace(path_smooth=self.smooth,
+                                    path_smooth_lag=self.lag)}
+
+    def train_cfg(self, mcfg, seed: int) -> TrainConfig:
+        return TrainConfig(model=mcfg, batch_size=self.batch,
+                           steps=self.steps, warmup_steps=2,
+                           learning_rate=TRAIN_LR, seed=seed)
+
+    def tp_shapes(self, n: int) -> tuple:
+        return ((1, n), (2, n // 2))
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def wall_s(dev, fn):
+    """(fn(), host seconds), ``dev`` synchronized on both sides."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, time.perf_counter() - t0
+
+
+class Spans:
+    """Time inside the calls of wrapped functions, by name: CUDA events
+    around each call on a card, read after a synchronize; the host clock
+    on the CPU."""
+
+    def __init__(self, dev):
+        self.dev, self.calls = dev, {}
+
+    @contextlib.contextmanager
+    def around(self, module, name: str):
+        """``module.<name>`` wrapped for the block."""
+        fn = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            if self.dev.type != "cuda":
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                self.calls.setdefault(name, []).append(
+                    1e3 * (time.perf_counter() - t0))
+                return out
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            self.calls.setdefault(name, []).append((a, b))
+            return out
+
+        setattr(module, name, wrapped)
+        try:
+            yield
+        finally:
+            setattr(module, name, fn)
+
+    def read(self, name: str) -> tuple:
+        """(ms summed, calls) of ``name`` since the last read."""
+        sync(self.dev)
+        calls = self.calls.pop(name, [])
+        return (sum(c if isinstance(c, float) else c[0].elapsed_time(c[1])
+                    for c in calls), len(calls))
+
+
+class ListWriter:
+    """In-memory writer that keeps what it is given."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write_batch(self, frames: np.ndarray) -> None:
+        self.parts.append(np.array(frames))
+
+
+def rank_counted(mesh, expected: int, fn):
+    """``fn()`` on this rank, every rank of ``mesh`` starting together,
+    with B1's counts set to 0 just before and read just after: (result,
+    host seconds, launches). Raises unless ``expected`` launches, all of
+    the packed kernel, on a card (the CPU runs the plain version: none)."""
+    import torch.distributed as dist
+    dev = mesh.device
+    sync(dev)
+    dist.barrier(group=mesh.group)
+    warp_wide.LAUNCHES = warp_wide.LAUNCHES_PACKED = 0
+    out, secs = wall_s(dev, fn)
+    n, packed = warp_wide.LAUNCHES, warp_wide.LAUNCHES_PACKED
+    want = expected if dev.type == "cuda" else 0
+    if n != want or packed != want:
+        raise AssertionError(f"rank {mesh.rank}: {n} B1 launches ({packed} "
+                             f"packed) for {expected} chunks")
+    return out, secs, n
+
+
+def host_arrays(tensors) -> dict:
+    return {k: v.detach().cpu().numpy().copy() for k, v in tensors}
+
+
+def train_run(state, tcfg, step, keep: bool, group=None) -> dict:
+    """``tcfg.steps`` steps ``step(generator)`` on ``state`` under cuDNN's
+    deterministic algorithms: every loss, a digest of the parameters after
+    the last step, the B2 and B3 launches, steps/s after the first step;
+    with ``keep`` also the first step's gradients and parameters and the
+    last parameters."""
+    import torch.distributed as dist
+    dev = next(state.model.parameters()).device
+    out, losses = {}, []
+    reset_train_launches()
+    with deterministic_cudnn():
+        for i in range(tcfg.steps):
+            if i == 1:
+                sync(dev)
+                if group is not None:
+                    dist.barrier(group=group)
+                t0 = time.perf_counter()
+            losses.append(float(step(train_loop.step_generator(tcfg.seed,
+                                                               i))["total"]))
+            if i == 0 and keep:
+                out["grads"] = host_arrays((k, p.grad) for k, p in
+                                           state.model.named_parameters())
+                out["params0"] = host_arrays(state.params.items())
+        sync(dev)
+        secs = time.perf_counter() - t0
+    digest = hashlib.sha1()
+    for v in state.params.values():
+        digest.update(v.detach().cpu().numpy().tobytes())
+    out.update(losses=losses, digest=digest.hexdigest(),
+               launches=train_launches(),
+               steps_per_s=(tcfg.steps - 1) / secs)
+    if keep:
+        out["params"] = host_arrays(state.params.items())
+    return out
+
+
+def p12_sharded(spec: MultiCard, mesh, mcfg, params, clips: np.ndarray,
+                trace_dir: str) -> dict:
+    """(a) on this rank: ``ShardedClipStabilizer`` in every mode and
+    ``stabilize_multi(mesh=)`` plain and causal over the whole batch: frame
+    hashes, launches, seconds; the device busy share of a plain run."""
+    from dvsg_tpu_torch.pipeline.multiclip import stabilize_multi
+    from dvsg_tpu_torch.utils import profiling
+    out = {}
+    modes = spec.modes(mcfg)
+    for mode, cfg in modes.items():
+        stab = dp.ShardedClipStabilizer(cfg, params, mesh)
+        stab.stabilize_clips(clips[:, :spec.chunk])              # warm-up
+        chunks = math.ceil((clips.shape[1] + cfg.path_smooth_lag)
+                           / spec.chunk)
+        got, secs, n = rank_counted(mesh, chunks,
+                                    lambda: stab.stabilize_clips(clips))
+        out[mode] = {"hashes": [frame_hashes(c) for c in got],
+                     "launches": n, "s": secs}
+        if mode == "plain":
+            with profiling.trace(trace_dir, mesh.device):
+                stab.stabilize_clips(clips)
+            out["busy"] = profiling.device_busy_stats(trace_dir)
+    for mode in ("plain", "causal"):
+        writers = [ListWriter() for _ in clips]
+        res, secs, n = rank_counted(
+            mesh, math.ceil(clips.shape[1] / spec.chunk),
+            lambda: stabilize_multi(modes[mode], params,
+                                    [MemReader(c) for c in clips], writers,
+                                    mesh=mesh))
+        out[f"multi_{mode}"] = {
+            "hashes": {i: frame_hashes(np.concatenate(w.parts))
+                       for i, w in enumerate(writers) if w.parts},
+            "written": res.frames_written, "ok": res.ok, "launches": n,
+            "s": secs}
+    return out
+
+
+def p12_temporal(spec: MultiCard, mesh, mcfg, params,
+                 clip: np.ndarray) -> dict:
+    """(b) on this rank: ``TemporalShardedStabilizer`` plain and causal at
+    each chunk size: frame hashes, launches, the chunk's host ms and the
+    ms inside ``mesh.ring_shift`` and ``mesh.all_gather`` a chunk."""
+    from dvsg_tpu_torch.parallel import mesh as mesh_lib
+    from dvsg_tpu_torch.parallel.temporal import TemporalShardedStabilizer
+    out, spans = {}, Spans(mesh.device)
+    for t in spec.temporal_chunks:
+        chunks = math.ceil(len(clip) / t)
+        for mode in ("plain", "causal"):
+            cfg = spec.modes(mcfg)[mode].replace(chunk_frames=t)
+            stab = TemporalShardedStabilizer(cfg, params, mesh)
+            stab.stabilize_clip(clip[:t])                        # warm-up
+            with spans.around(mesh_lib, "ring_shift"), \
+                    spans.around(mesh_lib, "all_gather"):
+                got, secs, n = rank_counted(
+                    mesh, chunks, lambda: stab.stabilize_clip(clip))
+                ring, gather = spans.read("ring_shift"), spans.read(
+                    "all_gather")
+            out[f"{mode}_T{t}"] = {
+                "hashes": frame_hashes(got), "launches": n,
+                "chunk_ms": 1e3 * secs / chunks,
+                "ring_ms": ring[0] / chunks, "ring_calls": ring[1],
+                "gather_ms": gather[0] / chunks, "gather_calls": gather[1]}
+    return out
+
+
+def p12_dp(spec: MultiCard, mesh, mcfg, params, seed: int) -> list:
+    """(c) on this rank: two runs of the same DP steps from the same
+    state (``train_run``); rank 0 keeps the first run's arrays."""
+    tcfg = spec.train_cfg(mcfg, seed)
+    runs = []
+    for run in range(2):
+        state = dp.replicate_state(
+            train_loop.build_state(tcfg, params, mesh.device), mesh)
+        step_fn, shard_batch = dp.make_dp_train_step(tcfg, mesh)
+        runs.append(train_run(state, tcfg, lambda gen: step_fn(
+            state, shard_batch(gen)), run == 0 and mesh.rank == 0,
+            mesh.group))
+    return runs
+
+
+def p12_tp(spec: MultiCard, meshes: dict, mcfg, params, inp: dict,
+           ref: dict) -> dict:
+    """(d) on this rank, on each mesh: offsets through ``tp_model`` against
+    one process's, a chunk through ``TPStabilizer`` against one process's
+    ``stabilize_clip``, its host ms and the ms inside
+    ``tp.gather_channels``."""
+    from dvsg_tpu_torch.parallel import tp
+    cfg = StabilizeConfig(model=mcfg, chunk_frames=spec.chunk)
+    out = {}
+    for shape, m in meshes.items():
+        spans = Spans(m.device)
+        stab = tp.TPStabilizer(cfg, params, m)
+        with torch.inference_mode():
+            offs = motion_cnn.predict_offsets(stab.model, torch.from_numpy(
+                inp["windows"]).to(m.device)).cpu().numpy()
+        stab.stabilize_clip(inp["chunk"])                        # warm-up
+        with spans.around(tp, "gather_channels"):
+            got, secs, n = rank_counted(m, 1, lambda: stab.stabilize_clip(
+                inp["chunk"]))
+            gather = spans.read("gather_channels")
+        d = np.abs(got.astype(int) - ref["tp_frames"].astype(int))
+        out["x".join(map(str, shape))] = {
+            "offsets_err": float(np.abs(offs - ref["tp_offsets"]).max()),
+            "lsb": int(d.max()), "share_off": float((d > 0).mean()),
+            "launches": n, "chunk_ms": 1e3 * secs, "gather_ms": gather[0],
+            "gathers": gather[1]}
+    return out
+
+
+def _p12_rank(rank: int, n: int, store: str, work_dir: str,
+              spec: MultiCard) -> None:
+    """One rank of phase 12: joins the group, drives (a)-(d) for every
+    preset on the card of its rank, writes what it got for the parent to
+    hold against one process."""
+    import pickle
+    import torch.distributed as dist
+    from dvsg_tpu_torch.parallel import dryrun
+    from dvsg_tpu_torch.parallel import mesh as mesh_lib
+
+    if spec.device == "cpu":
+        torch.set_num_threads(1)
+    dryrun.join_group(rank, n, store, spec.backend, timeout_s=300)
+    try:
+        mesh = mesh_lib.make_mesh(device=spec.device)
+        dev = mesh.device
+        if (mesh.backend != spec.backend or mesh.size != n
+                or (dev.type == "cuda" and dev.index != rank)):
+            raise AssertionError(f"rank {rank}: a mesh of {mesh.size} "
+                                 f"{mesh.backend} ranks on {dev}")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            stab_lib.exact_math()
+        meshes = {shape: mesh_lib.make_mesh(shape, ("data", "model"), dev)
+                  for shape in spec.tp_shapes(n)}
+        with open(os.path.join(work_dir, "p12_inputs.pkl"), "rb") as f:
+            inputs, refs = pickle.load(f)
+        res = {"device": str(dev)}
+        for preset, path in spec.presets:
+            params, mcfg = load_npz(path)
+            res[preset] = {
+                "sharded": p12_sharded(spec, mesh, mcfg, params,
+                                       inputs["clips"], os.path.join(
+                                           work_dir, f"trace{rank}{preset}")),
+                "temporal": p12_temporal(spec, mesh, mcfg, params,
+                                         inputs["long"]),
+                "dp": p12_dp(spec, mesh, mcfg, params, inputs["seed"]),
+                "tp": p12_tp(spec, meshes, mcfg, params, inputs[preset],
+                             refs[preset])}
+        with open(os.path.join(work_dir, f"p12_rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def p12_inputs(spec: MultiCard, seed: int, dev) -> dict:
+    """Phase 12's seeded inputs: the clip batch of (a), the long clip of
+    (b), the chunk and each preset's model windows of (d)."""
+    out = {"seed": seed,
+           "clips": np.stack([make_clip(seed + 120 + i, spec.clip_frames,
+                                        spec.height, spec.width, dev)[0]
+                              for i in range(spec.clips)]),
+           "long": make_clip(seed + 130, spec.long_frames, spec.height,
+                             spec.width, dev)[0]}
+    chunk = make_clip(seed + 131, spec.chunk, spec.height, spec.width,
+                      dev)[0]
+    rng = np.random.default_rng(seed + 132)
+    for preset, path in spec.presets:
+        mcfg = load_npz(path)[1]
+        mh, mw = mcfg.model_size
+        out[preset] = {"chunk": chunk, "windows": rng.random(
+            (spec.tp_windows, mh, mw, 3 * mcfg.window), np.float32) - 0.5}
+    return out
+
+
+def p12_references(spec: MultiCard, inputs: dict, dev) -> dict:
+    """Phase 12's work in this one process on ``dev``, and its times: the
+    frames of ``stabilize_clip`` (hashes; the TP chunk itself), the clip
+    batch through ``ShardedClipStabilizer`` on a mesh of this process,
+    ``train_step`` (``train_run``), the unsharded offsets."""
+    from dvsg_tpu_torch.parallel import mesh as mesh_lib
+    one = mesh_lib.make_mesh(device=dev)
+    clips, long = inputs["clips"], inputs["long"]
+    refs = {}
+    for preset, path in spec.presets:
+        params, mcfg = load_npz(path)
+        modes = spec.modes(mcfg)
+        r = refs[preset] = {}
+        for mode, cfg in modes.items():
+            single = stab_lib.Stabilizer(cfg, params, device=dev)
+            r[f"clips_{mode}"] = [frame_hashes(single.stabilize_clip(c))
+                                  for c in clips]
+            batch = dp.ShardedClipStabilizer(cfg, params, one)
+            batch.stabilize_clips(clips[:, :spec.chunk])         # warm-up
+            r[f"one_card_{mode}_s"] = wall_s(
+                dev, lambda: batch.stabilize_clips(clips))[1]
+        for t in spec.temporal_chunks:
+            for mode in ("plain", "causal"):
+                single = stab_lib.Stabilizer(
+                    modes[mode].replace(chunk_frames=t), params, device=dev)
+                got = single.stabilize_clip(long)
+                secs = wall_s(dev, lambda: single.stabilize_clip(long))[1]
+                r[f"long_{mode}_T{t}"] = {
+                    "hashes": frame_hashes(got),
+                    "chunk_ms": 1e3 * secs / math.ceil(len(long) / t)}
+        tcfg = spec.train_cfg(mcfg, inputs["seed"])
+        state = train_loop.build_state(tcfg, params, dev)
+        r["train"] = train_run(state, tcfg, lambda gen: train_loop.train_step(
+            state, gen, tcfg), keep=True)
+        single = stab_lib.Stabilizer(modes["plain"], params, device=dev)
+        with torch.inference_mode():
+            r["tp_offsets"] = motion_cnn.predict_offsets(
+                single.model, torch.from_numpy(
+                    inputs[preset]["windows"]).to(dev)).cpu().numpy()
+        r["tp_frames"] = single.stabilize_clip(inputs[preset]["chunk"])
+        r["tp_chunk_ms"] = 1e3 * wall_s(dev, lambda: single.stabilize_clip(
+            inputs[preset]["chunk"]))[1]
+    return refs
+
+
+def p12_check(spec: MultiCard, n: int, refs: dict, ranks: list) -> tuple:
+    """Phase 12's gates on every rank's results against one process.
+    Returns (B1 launches, B2/B3 launches, the numbers, the gates missed);
+    the caller logs the numbers, then raises on any miss."""
+    b1, train_counts, results = 0, {k: 0 for k in train_launches()}, {}
+    frames, fails = spec.clips * spec.clip_frames, []
+
+    def hashes(name, got, want):
+        try:
+            same_hashes(name, got, want)
+        except AssertionError as e:
+            fails.append(str(e))
+
+    for preset, _ in spec.presets:
+        ref = refs[preset]
+        one = ref["train"]
+        res = results[preset] = {"ranks": n}
+        for r, got in enumerate(ranks):
+            g, where = got[preset], f"[{preset}] rank {r} of {n}"
+            card = got["device"].startswith("cuda")
+            # (a)
+            for mode in ("plain", "causal", "lag"):
+                for i, h in enumerate(g["sharded"][mode]["hashes"]):
+                    hashes(f"{where}: sharded {mode} clip {i}", h,
+                           ref[f"clips_{mode}"][i])
+                b1 += g["sharded"][mode]["launches"]
+            mine = list(range(r * spec.clips // n,
+                              (r + 1) * spec.clips // n))
+            for mode in ("plain", "causal"):
+                m = g["sharded"][f"multi_{mode}"]
+                if (sorted(m["hashes"]) != mine or not m["ok"]
+                        or m["written"] != [spec.clip_frames] * spec.clips):
+                    fails.append(
+                        f"{where}: stabilize_multi(mesh=) {mode} wrote clips "
+                        f"{sorted(m['hashes'])} (its own: {mine}), written "
+                        f"{m['written']}, ok {m['ok']}")
+                for i, h in m["hashes"].items():
+                    hashes(f"{where}: stabilize_multi {mode} clip {i}", h,
+                           ref[f"clips_{mode}"][i])
+                b1 += m["launches"]
+            # (b)
+            for key, t in g["temporal"].items():
+                hashes(f"{where}: temporal {key}", t["hashes"],
+                       ref[f"long_{key}"]["hashes"])
+                b1 += t["launches"]
+            # (c)
+            runs = g["dp"]
+            for i, run in enumerate(runs):
+                want = spec.steps if card else 0
+                if any(v != want for v in run["launches"].values()):
+                    fails.append(f"{where}: DP run {i} launched "
+                                 f"{run['launches']} in {spec.steps} steps")
+                for k, v in run["launches"].items():
+                    train_counts[k] += v
+            if (runs[1]["digest"] != runs[0]["digest"]
+                    or runs[1]["losses"] != runs[0]["losses"]):
+                fails.append(f"{where}: a second run of the same "
+                             f"{spec.steps} DP steps differs from the first")
+            if runs[0]["digest"] != ranks[0][preset]["dp"][0]["digest"]:
+                fails.append(f"{where}: its DP parameters differ from rank "
+                             "0's")
+            loss_rel = [abs(a - b) / abs(b) for a, b in zip(
+                runs[0]["losses"], one["losses"])]
+            if max(loss_rel[:DP_GATED_STEPS]) > DP_LOSS_RTOL:
+                fails.append(f"{where}: DP losses {loss_rel} relative from "
+                             "train_step")
+            # (d)
+            for shape, t in g["tp"].items():
+                if t["offsets_err"] > TP_TOL or t["lsb"] > 1 \
+                        or t["launches"] != (1 if card else 0):
+                    fails.append(f"{where}: TP {shape}: {t}")
+                b1 += t["launches"]
+            res[f"rank{r}"] = {
+                "device": got["device"], "busy": g["sharded"].get("busy"),
+                "sharded_s": {m: g["sharded"][m]["s"]
+                              for m in ("plain", "causal", "lag")},
+                "multi_s": {m: g["sharded"][f"multi_{m}"]["s"]
+                            for m in ("plain", "causal")},
+                "temporal": {k: {f: v for f, v in t.items()
+                                 if f != "hashes"}
+                             for k, t in g["temporal"].items()},
+                "dp_loss_rel": loss_rel,
+                "dp_steps_per_s": runs[0]["steps_per_s"],
+                "tp": g["tp"]}
+        # Rank 0 holds the arrays of its first DP run.
+        got = ranks[0][preset]["dp"][0]
+        param0 = max(float(np.abs(got["params0"][k] - v).max())
+                     for k, v in one["params0"].items())
+        grad_rel = max(float(np.abs(got["grads"][k] - v).max())
+                       / max(float(np.abs(v).max()), 1e-30)
+                       for k, v in one["grads"].items())
+        if param0 > DP_PARAM_TOL or grad_rel > DP_GRAD_TOL:
+            fails.append(f"[{preset}] DP over {n} ranks: the first step's "
+                         f"parameters {param0:.2e}, gradients "
+                         f"{grad_rel:.2e} from train_step")
+        res.update(
+            dp_param0_abs=param0, dp_grad_rel=grad_rel,
+            dp_param_abs_after_steps=max(
+                float(np.abs(got["params"][k] - v).max())
+                for k, v in one["params"].items()),
+            one_card={"sharded_fps": {m: frames / ref[f"one_card_{m}_s"]
+                                      for m in ("plain", "causal", "lag")},
+                      "temporal_chunk_ms": {
+                          k[5:]: v["chunk_ms"] for k, v in ref.items()
+                          if k.startswith("long_")},
+                      "train_steps_per_s": one["steps_per_s"],
+                      "tp_chunk_ms": ref["tp_chunk_ms"]},
+            sharded_fps={m: frames / max(res[f"rank{r}"]["sharded_s"][m]
+                                         for r in range(n))
+                         for m in ("plain", "causal", "lag")},
+            dp_steps_per_s=min(res[f"rank{r}"]["dp_steps_per_s"]
+                               for r in range(n)))
+    return b1, train_counts, results, fails
+
+
+def p12_log(spec: MultiCard, n: int, results: dict) -> None:
+    for preset, _ in spec.presets:
+        res = results[preset]
+        one = res["one_card"]
+        ranks = [res[f"rank{r}"] for r in range(n)]
+        log(f"  [{preset}] {n} {spec.backend} ranks on "
+            + ", ".join(r["device"] for r in ranks) + ": every output == "
+            "one process on one card bytewise; one B1 launch a (batched) "
+            "chunk a rank, one B2 and one B3 pair a DP step a rank")
+        log(f"  [{preset}] (a) ShardedClipStabilizer, {spec.clips} clips x "
+            f"{spec.clip_frames} frames, frames/s end to end, {n} cards / "
+            "one card: " + ", ".join(
+                f"{m} {res['sharded_fps'][m]:.1f} / "
+                f"{one['sharded_fps'][m]:.1f}"
+                for m in ("plain", "causal", "lag"))
+            + "; stabilize_multi(mesh=) s a rank: " + ", ".join(
+                f"{m} " + " ".join(f"{r['multi_s'][m]:.3f}" for r in ranks)
+                for m in ("plain", "causal"))
+            + "; device idle share of a plain run: " + ", ".join(
+                "not traced" if r["busy"] is None
+                else f"{r['busy']['idle_pct']:.1f} %" for r in ranks))
+        for key, ms in one["temporal_chunk_ms"].items():
+            t = [r["temporal"][key] for r in ranks]
+            log(f"  [{preset}] (b) temporal {key}: chunk ms end to end, "
+                f"{n} ranks " + ", ".join(f"{x['chunk_ms']:.2f}" for x in t)
+                + f" / one card {ms:.2f}; a chunk's ring_shift ms "
+                + ", ".join(f"{x['ring_ms']:.3f}" for x in t)
+                + ", all_gather ms "
+                + ", ".join(f"{x['gather_ms']:.3f}" for x in t))
+        rel = [max(r["dp_loss_rel"][i] for r in ranks)
+               for i in range(spec.steps)]
+        log(f"  [{preset}] (c) DP, batch {spec.batch} over {n} ranks, "
+            f"{spec.steps} steps: losses relative to train_step, step by "
+            f"step " + " ".join(f"{x:.1e}" for x in rel) + " (the first "
+            f"{DP_GATED_STEPS} held), first step's parameters "
+            f"{res['dp_param0_abs']:.2e} and gradients "
+            f"{res['dp_grad_rel']:.2e} of the largest; parameters after "
+            f"{spec.steps} steps {res['dp_param_abs_after_steps']:.2e} "
+            "(recorded); a second run byte-equal, every rank equal; "
+            f"steps/s {res['dp_steps_per_s']:.2f} vs train_step "
+            f"{one['train_steps_per_s']:.2f} on one card")
+        for shape in ranks[0]["tp"]:
+            t = [r["tp"][shape] for r in ranks]
+            log(f"  [{preset}] (d) TP {shape}: offsets within "
+                f"{max(x['offsets_err'] for x in t):.2e} of one process, "
+                f"chunk {max(x['lsb'] for x in t)} LSB "
+                f"({max(x['share_off'] for x in t):.2e} of bytes off); "
+                "chunk ms end to end " + ", ".join(
+                    f"{x['chunk_ms']:.2f}" for x in t)
+                + f" / one card {one['tp_chunk_ms']:.2f}; inside "
+                f"gather_channels ({t[0]['gathers']} calls) ms "
+                + ", ".join(f"{x['gather_ms']:.2f}" for x in t))
+
+
+def multicard_run(spec: MultiCard, n: int, dev, work_dir: str,
+                  seed: int) -> tuple:
+    """(a)-(d) of phase 12 over ``n`` spawned ranks, each held against
+    this one process on ``dev``. Returns (B1 launches, B2/B3 launches,
+    results)."""
+    import pickle
+    from dvsg_tpu_torch.parallel.dryrun import run_ranks
+    inputs = p12_inputs(spec, seed, dev)
+    t0 = time.perf_counter()
+    refs = p12_references(spec, inputs, dev)
+    ref_s = time.perf_counter() - t0
+    with open(os.path.join(work_dir, "p12_inputs.pkl"), "wb") as f:
+        pickle.dump((inputs, {p: {k: refs[p][k] for k in ("tp_offsets",
+                                                          "tp_frames")}
+                              for p, _ in spec.presets}), f)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_ranks(_p12_rank, n, args=(n, os.path.join(work_dir, "p12_store"),
+                                  work_dir, spec), timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(work_dir, f"p12_rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    b1, train_counts, results, fails = p12_check(spec, n, refs, ranks)
+    results.update(reference_s=ref_s, ranks_s=ranks_s)
+    log(f"  one process's references {ref_s:.1f} s; {n} ranks spawned, run "
+        f"and joined in {ranks_s:.1f} s")
+    p12_log(spec, n, results)
+    if fails:
+        raise AssertionError("phase 12: " + "; ".join(fails))
+    return b1, train_counts, results
+
+
+def p12_entry_points(n: int, dev, work_dir: str, seed: int) -> dict:
+    """(e) The user entry points on the cards: ``python -m
+    dvsg_tpu_torch.parallel.dryrun n`` (NCCL, one rank a card) and, where
+    OpenCV imports, the README's ``stabilize-batch`` under torchrun over
+    seeded mp4s, byte-equal to the same command with ``--no-mesh``, each
+    rank writing its own clips."""
+    res = {}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "dvsg_tpu_torch.parallel.dryrun", str(n)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    want = (f"dryrun_multichip: {n} nccl ranks on "
+            + ", ".join(f"cuda:{k}" for k in range(n)))
+    if proc.returncode != 0 or want not in proc.stdout:
+        raise AssertionError(f"dryrun {n}: exit {proc.returncode}, no "
+                             f"{want!r}:\n{proc.stdout[-1500:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    res["dryrun"] = {"s": time.perf_counter() - t0,
+                     "line": next(x for x in proc.stdout.splitlines()
+                                  if want in x)}
+    log(f"  (e) dryrun {n} ({res['dryrun']['s']:.1f} s): "
+        f"{res['dryrun']['line']}")
+    if not have_opencv():
+        log("  (e) stabilize-batch under torchrun: not run, OpenCV does not "
+            "import here")
+        res["stabilize_batch"] = "not run: no OpenCV"
+        return res
+    from dvsg_tpu_torch.utils import video_io
+    ins = []
+    for i in range(P12_MP4S):
+        clip = make_clip(seed + 140 + i, P12_MP4_FRAMES, HEIGHT, WIDTH,
+                         dev)[0]
+        ins.append(os.path.join(work_dir, f"in{i}.mp4"))
+        with video_io.VideoWriter(ins[-1], WIDTH, HEIGHT) as w:
+            w.write_batch(clip)
+    outs, runs = {}, {}
+    for name, extra in (("mesh", ()), ("no_mesh", ("--no-mesh",))):
+        outs[name] = [os.path.join(work_dir, f"{name}{i}")
+                      for i in range(P12_MP4S)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(n), "-m", "dvsg_tpu_torch",
+             "stabilize-batch", "--inputs", *ins, "--outputs", *outs[name],
+             "--preset", "fast", "--chunk-frames", str(T_CHUNK), *extra],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                filter(None, (ROOT, os.environ.get("PYTHONPATH"))))),
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"stabilize-batch under torchrun ({name}): "
+                                 f"exit {proc.returncode}\n"
+                                 f"{proc.stdout[-1500:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        runs[name] = {"s": time.perf_counter() - t0,
+                      "stdout": proc.stdout.splitlines()[-12:],
+                      "said": [x for x in proc.stdout.splitlines()
+                               if x.startswith("stabilized ")],
+                      "ranks": sorted(x for x in proc.stderr.splitlines()
+                                      if x.startswith("rank "))}
+    # Under the mesh each rank writes its own clip on its own card.
+    per = P12_MP4S // n
+    want = sorted(f"rank {r} of {n} on cuda:{r}: writes "
+                  + ", ".join(outs["mesh"][r * per:(r + 1) * per])
+                  for r in range(n))
+    if runs["mesh"]["ranks"] != want:
+        raise AssertionError(f"stabilize-batch under torchrun: the ranks "
+                             f"said {runs['mesh']['ranks']}, not {want}")
+    for a, b in zip(outs["mesh"], outs["no_mesh"]):
+        fa, fb = sorted(os.listdir(a)), sorted(os.listdir(b))
+        if fa != fb or len(fa) != P12_MP4_FRAMES:
+            raise AssertionError(f"{a}: {len(fa)} frames, {b}: {len(fb)}")
+        for name in fa:
+            with open(os.path.join(a, name), "rb") as x, \
+                    open(os.path.join(b, name), "rb") as y:
+                if x.read() != y.read():
+                    raise AssertionError(f"{a}/{name} differs from the "
+                                         "--no-mesh run's")
+    res["stabilize_batch"] = runs
+    log(f"  (e) stabilize-batch under torchrun, {P12_MP4S} seeded mp4s "
+        f"({P12_MP4_FRAMES} frames, {WIDTH}x{HEIGHT}): each rank wrote its "
+        f"own clip on its own card, every output byte-equal to --no-mesh; "
+        f"{runs['mesh']['s']:.1f} s vs {runs['no_mesh']['s']:.1f} s "
+        f"(--no-mesh), processes included; "
+        + " / ".join(s for r in runs.values() for s in r["said"]))
+    return res
+
+
+def phase_multicard(seed: int, dev, work_dir: str) -> tuple:
+    """Phase 12: one NCCL rank per card over 4 cards where there are four
+    or more, else 2; nothing with one card. Returns (B1 launches, B2/B3
+    launches, results)."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"  phase 12 not run: cards: {cards} (one NCCL rank a card "
+            "needs two or more)")
+        return 0, {}, {"not run": f"cards: {cards}"}
+    n = 4 if cards >= 4 else 2
+    spec = MultiCard(tuple((p, os.path.join(ROOT, "checkpoints", c))
+                           for p, c in PRESETS))
+    b1, train_counts, results = multicard_run(spec, n, dev, work_dir, seed)
+    results["entry_points"] = p12_entry_points(n, dev, work_dir, seed)
+    return b1, train_counts, results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3225,6 +3962,14 @@ def main(argv=None) -> int:
                                                        work_dir)
     launches += p11_launches
 
+    log("== phase 12: the multi-rank surfaces over NCCL, one rank a card")
+    with tempfile.TemporaryDirectory() as work_dir:
+        p12_launches, p12_train, p12_results = phase_multicard(
+            args.seed, dev, work_dir)
+    launches += p12_launches
+    for k, v in p12_train.items():
+        train_counts[k] += v
+
     def entry(name, source, replaces, n_launches, err, rec):
         return {"name": name, "route": "cuda",
                 "source": f"dvsg_tpu_torch/csrc/{source}.cu",
@@ -3261,6 +4006,7 @@ def main(argv=None) -> int:
               "training": train_results, "batch": batch_results,
               "parallel_export": p9_results,
               "bf16_stacked": p10_results, "last_modules": p11_results,
+              "multicard": p12_results,
               "eval": eval_results, "build_s": build_s, "ptxas": ptxas,
               "build_each_s": build_each,
               "wall_s": time.perf_counter() - t_start}

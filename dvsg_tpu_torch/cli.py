@@ -556,6 +556,9 @@ def _run_batch(args, cfg, params, border_crop) -> int:
     device = mesh_lib.rank_device(args.platform)
     mine = (mesh.shard(len(args.inputs), "clip count") if mesh is not None
             else slice(None))
+    if mesh is not None:
+        print(f"rank {rank} of {n_dev} on {mesh.device}: writes "
+              f"{', '.join(args.outputs[mine])}", file=sys.stderr)
     readers = [video_io.VideoReader(p_) for p_ in args.inputs]
     writers = []
     try:

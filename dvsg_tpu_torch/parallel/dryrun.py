@@ -28,7 +28,11 @@ def join_group(rank: int, world: int, store_path: str,
                backend: str = "gloo", timeout_s: float = 120.0) -> None:
     """Join a process group of ``world`` ranks over a file store at
     ``store_path`` (no TCP port to collide with other runs); a collective
-    that waits longer than ``timeout_s`` raises."""
+    that waits longer than ``timeout_s`` raises. The ranks run on this
+    host, so ``rank`` is also this process's ``LOCAL_RANK``
+    (``mesh.rank_device`` maps it to its card): a ``LOCAL_RANK`` inherited
+    from the spawning process would put every rank on one card."""
+    os.environ["LOCAL_RANK"] = str(rank)
     dist.init_process_group(backend, init_method=f"file://{store_path}",
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=timeout_s))
@@ -138,11 +142,14 @@ def _dryrun_rank(rank: int, n: int, store_path: str, backend: str,
             _check_equal(f"temporal {mode}", out,
                          Stabilizer(cfg, params, device=dev
                                     ).stabilize_clip(clip))
+        devices = mesh_lib.all_gather_object(mesh, str(dev))
+        if dev.type == "cuda" and len(set(devices)) != n:
+            raise AssertionError(f"ranks share a card: {devices}")
         if rank == 0:
-            print(f"dryrun_multichip: {n} {backend} ranks on {dev.type}: "
-                  "DP train step, sharded clips (plain, causal, lag) and a "
-                  "temporal clip (plain, causal) == one process",
-                  flush=True)
+            print(f"dryrun_multichip: {n} {backend} ranks on "
+                  f"{', '.join(devices)}: DP train step, sharded clips "
+                  "(plain, causal, lag) and a temporal clip (plain, causal) "
+                  "== one process", flush=True)
     finally:
         dist.destroy_process_group()
 

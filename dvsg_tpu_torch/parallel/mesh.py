@@ -25,6 +25,7 @@ group through host memory, and only there: NCCL groups take it as it is.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -115,10 +116,16 @@ def _local_index() -> int:
 
 def rank_device(device="cuda") -> torch.device:
     """The device this rank drives: ``cuda`` without an index is the card
-    ``_local_index()``; anything else as given."""
+    ``_local_index()``; anything else as given. A card this process cannot
+    see raises: one rank per card, never a wrapped or shared index."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", _local_index())
+    if dev.type == "cuda" and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"rank {world_rank()} would drive {dev}, but this process sees "
+            f"{torch.cuda.device_count()} card(s): start at most one rank "
+            "per visible card")
     return dev
 
 
@@ -294,9 +301,16 @@ def ring_shift(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
 
 
 def all_gather_object(mesh: Mesh, obj) -> List[Any]:
-    """Every rank's picklable ``obj``, in rank order, on every rank."""
+    """Every rank's picklable ``obj``, in rank order, on every rank.
+
+    torch stages the pickles on the current CUDA device, not on a tensor's:
+    a rank that never called ``torch.cuda.set_device`` stages on cuda:0,
+    and NCCL refuses two ranks on one card. So the rank's card is made
+    current for the call."""
     if mesh.group is None:
         return [obj]
     out: List[Any] = [None] * mesh.size
-    dist.all_gather_object(out, obj, group=mesh.group)
+    with (torch.cuda.device(mesh.device) if mesh.device.type == "cuda"
+          else contextlib.nullcontext()):
+        dist.all_gather_object(out, obj, group=mesh.group)
     return out

@@ -570,6 +570,41 @@ def test_world_of_one_over_nccl(dev, tmp_path):
         dist.destroy_process_group()
 
 
+def test_two_nccl_ranks_on_two_cards(dev, tmp_path):
+    """Two NCCL ranks, one a card, their current device left as the
+    process started: each drives the card of its rank; the temporal ring
+    exchange gives one process's frames bytewise (plain and causal); two
+    runs of the same DP steps give the same bytes on both ranks, their
+    losses within rtol 1e-5 of train_step; ``all_gather_object`` gathers
+    every rank's object."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    import torch_ranks
+    from dvsg_tpu_torch.config import TrainConfig
+    from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
+    from dvsg_tpu_torch.train import loop
+    cfg, params, clip = _smooth_setup()
+    cfg = cfg.replace(path_smooth=0)
+    tcfg = TrainConfig(model=cfg.model, batch_size=4, steps=4,
+                       warmup_steps=1)
+    ranks = torch_ranks.spawn("nccl", 2, tmp_path, dict(
+        cfg=cfg, params=params, clip=clip, tcfg=tcfg, tparams=params,
+        steps=3), backend="nccl")
+    want = {m: Stabilizer(cfg.replace(**torch_ranks.MODES[m]), params,
+                          device=dev).stabilize_clip(clip)
+            for m in ("plain", "causal")}
+    one = loop.build_state(tcfg, params, dev)
+    losses = [float(loop.train_step(one, loop.step_generator(0, i), tcfg)
+                    ["total"]) for i in range(3)]
+    for r, got in enumerate(ranks):
+        assert (got["device"], got["backend"]) == (f"cuda:{r}", "nccl")
+        assert got["objects"] == [(0, "cuda:0"), (1, "cuda:1")]
+        for m, frames in want.items():
+            np.testing.assert_array_equal(got[m], frames)
+        assert got["dp"][0] == got["dp"][1] == ranks[0]["dp"][0]
+        np.testing.assert_allclose(got["dp"][0][0], losses, rtol=1e-5)
+
+
 def test_artifact_exported_without_a_card_runs_on_the_card(dev, tmp_path):
     """A process that sees no card exports the chunk step for the card
     (plain and smoothed); loaded here, its frames equal the live path's

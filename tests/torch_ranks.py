@@ -190,13 +190,54 @@ def tp_cases(rank, p):
     return res
 
 
+def local_cases(rank, p):
+    """The card index this rank would drive (``LOCAL_RANK``)."""
+    return {"local": mesh_lib._local_index(),
+            "env": os.environ.get("LOCAL_RANK")}
+
+
+def dp_twice_cases(rank, p):
+    """Two runs of the same data-parallel steps from the same state over
+    the world: every loss and the parameters' bytes after each run."""
+    m = mesh_lib.make_mesh(device=p.get("device", "cpu"))
+    runs = []
+    for _ in range(2):
+        state = dp.replicate_state(
+            loop.build_state(p["tcfg"], p["tparams"], m.device), m)
+        step_fn, shard_batch = dp.make_dp_train_step(p["tcfg"], m)
+        losses = [float(step_fn(state, shard_batch(
+            loop.step_generator(0, i)))["total"])
+            for i in range(p["steps"])]
+        runs.append((losses, b"".join(
+            v.detach().cpu().numpy().tobytes()
+            for v in state.params.values())))
+    return runs
+
+
+def nccl_cases(rank, p):
+    """Over NCCL, one rank a card (``rank_device``), the current device
+    left as the process started: the temporal ring exchange (plain and
+    causal), the DP steps and ``all_gather_object``."""
+    m = mesh_lib.make_mesh(device="cuda")
+    res = {"device": str(m.device), "backend": m.backend,
+           "objects": mesh_lib.all_gather_object(m, (rank, str(m.device)))}
+    for mode in ("plain", "causal"):
+        cfg = p["cfg"].replace(**MODES[mode])
+        res[mode] = temporal.TemporalShardedStabilizer(
+            cfg, p["params"], m).stabilize_clip(p["clip"])
+    torch.backends.cudnn.deterministic = True
+    res["dp"] = dp_twice_cases(rank, dict(p, device="cuda"))
+    return res
+
+
 CASES = {"sharded": sharded_cases, "temporal": temporal_cases,
-         "multi": multi_cases, "tp": tp_cases}
+         "multi": multi_cases, "tp": tp_cases, "local": local_cases,
+         "dp_twice": dp_twice_cases, "nccl": nccl_cases}
 
 
-def _rank(rank, n, store, case, payload_path, out_dir):
+def _rank(rank, n, store, case, payload_path, out_dir, backend="gloo"):
     torch.set_num_threads(1)
-    dryrun.join_group(rank, n, store, "gloo", timeout_s=RANK_TIMEOUT_S)
+    dryrun.join_group(rank, n, store, backend, timeout_s=RANK_TIMEOUT_S)
     try:
         with open(payload_path, "rb") as f:
             payload = pickle.load(f)
@@ -207,15 +248,16 @@ def _rank(rank, n, store, case, payload_path, out_dir):
         dist.destroy_process_group()
 
 
-def spawn(case, n, tmp_path, payload):
-    """Every rank's result of ``CASES[case]`` over ``n`` gloo ranks."""
+def spawn(case, n, tmp_path, payload, backend="gloo"):
+    """Every rank's result of ``CASES[case]`` over ``n`` ranks of a
+    ``backend`` group."""
     d = str(tmp_path)
     os.makedirs(d, exist_ok=True)
     payload_path = os.path.join(d, "payload.pkl")
     with open(payload_path, "wb") as f:
         pickle.dump(payload, f)
     dryrun.run_ranks(_rank, n, args=(n, os.path.join(d, "store"), case,
-                                     payload_path, d),
+                                     payload_path, d, backend),
                      timeout_s=SPAWN_TIMEOUT_S)
     out = []
     for r in range(n):
