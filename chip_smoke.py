@@ -157,6 +157,17 @@ on failure:
    where OpenCV imports, ``stabilize-batch`` under ``torchrun`` over four
    seeded mp4s byte-equal to the same command with ``--no-mesh``, each
    rank writing its own clip on its own card.
+13. the reference's argv and ``predict_grid``: (a)
+   ``models.motion_cnn.predict_grid`` for both presets at full width,
+   grids at 1280x720: bit-equal to ``grid_from_offsets(predict_offsets)``
+   on the card, within 1e-4 of the CPU path; (b) where OpenCV imports, on
+   a seeded 48-frame 720p mp4 through ``cli.main``: ``stabilize
+   --checkpoint flagship_fast.npz --preset quality --chunk-frames 0``
+   byte-equal to ``--preset fast --chunk-frames 16``, one packed B1
+   launch a chunk; ``eval --warp-impl auto --chunk-frames 0`` (its
+   launches logged); ``export --checkpoint ... --preset quality
+   --warp-impl auto --for-platform cuda``, then ``stabilize --artifact``
+   byte-equal to the live run; ``eval --warp-impl pallas`` exits 2.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. ``--json PATH`` also writes every
@@ -3876,6 +3887,150 @@ def phase_multicard(seed: int, dev, work_dir: str) -> tuple:
     return b1, train_counts, results
 
 
+# --- the reference's argv and predict_grid -----------------------------------
+
+# Phase 13: predict_grid's windows, its tolerance against the CPU path (the
+# offsets tests' f32 atol, tests/test_torch_model.py), and the seeded mp4's
+# frames for the repaired argv.
+P13_WINDOWS = 2
+P13_GRID_ATOL = 1e-4
+P13_FRAMES = 48
+
+
+def p13_predict_grid(seed: int, dev, height: int = HEIGHT,
+                     width: int = WIDTH) -> dict:
+    """(a) ``motion_cnn.predict_grid`` for both presets at full width, the
+    grids at ``height`` x ``width``: bit-equal on ``dev`` to
+    ``grid_from_offsets(predict_offsets(...))``, within ``P13_GRID_ATOL``
+    of the CPU path."""
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(seed + 130)
+    res = {}
+    for preset, ckpt in PRESETS:
+        params, mcfg = load_npz(os.path.join(ROOT, "checkpoints", ckpt))
+        mh, mw = mcfg.model_size
+        windows = torch.from_numpy(rng.uniform(
+            -0.5, 0.5, (P13_WINDOWS, mh, mw, mcfg.window * mcfg.channels)
+        ).astype(np.float32))
+        with torch.inference_mode(), deterministic_cudnn():
+            model = stab_lib.build_model(mcfg, params, dev)
+            x = windows.to(dev)
+            grid = motion_cnn.predict_grid(model, x, height, width)
+            composed = grid_ops.grid_from_offsets(
+                motion_cnn.predict_offsets(model, x), height, width)
+            on_cpu = grid if dev == cpu else motion_cnn.predict_grid(
+                stab_lib.build_model(mcfg, params, cpu), windows, height,
+                width)
+        err = float((grid.cpu() - on_cpu).abs().max())
+        if tuple(grid.shape) != (P13_WINDOWS, height, width, 2):
+            raise AssertionError(f"[{preset}] predict_grid shape "
+                                 f"{tuple(grid.shape)}")
+        if not torch.equal(grid, composed):
+            raise AssertionError(f"[{preset}] predict_grid differs from "
+                                 "grid_from_offsets(predict_offsets) on "
+                                 f"{dev}")
+        if not err <= P13_GRID_ATOL:
+            raise AssertionError(f"[{preset}] predict_grid {err:.3g} from "
+                                 "the CPU path")
+        res[preset] = {"max_abs_vs_cpu": err}
+        log(f"  [{preset}] predict_grid {P13_WINDOWS} windows {mh}x{mw} -> "
+            f"{width}x{height} grids on {dev}: == grid_from_offsets("
+            f"predict_offsets) bitwise, {err:.3g} from the CPU path")
+    return res
+
+
+def p13_argv(seed: int, dev, work_dir: str, height: int = HEIGHT,
+             width: int = WIDTH, frames: int = P13_FRAMES) -> tuple:
+    """(b) The argv the port used to refuse and the reference runs, through
+    ``cli.main`` on a seeded mp4 (where OpenCV imports), B1's counts set to
+    0 before each command and read after it: ``--checkpoint`` with
+    ``--preset`` and ``--chunk-frames 0`` == ``--preset fast --chunk-frames
+    16`` bytewise, one packed launch a chunk; ``eval --warp-impl auto
+    --chunk-frames 0``; ``export --checkpoint --preset --warp-impl auto
+    --for-platform``, then ``stabilize --artifact`` == the live run; ``eval
+    --warp-impl pallas`` exits 2. Returns (B1 launches, results)."""
+    from dvsg_tpu_torch import cli
+    from dvsg_tpu_torch.utils import video_io
+    if not have_opencv():
+        log("  (b) not run: OpenCV does not import here")
+        return 0, {"not run": "no OpenCV"}
+    clip = make_clip(seed + 131, frames, height, width, dev)[0]
+    mp4 = os.path.join(work_dir, "p13.mp4")
+    with video_io.VideoWriter(mp4, width, height, fps=24.0) as w:
+        w.write_batch(clip)
+    fast = os.path.join(ROOT, "checkpoints", dict(PRESETS)["fast"])
+    chunks = math.ceil(frames / T_CHUNK) if dev.type == "cuda" else 0
+    launches, res = 0, {}
+
+    def run(name, argv, rc=0, expect=None):
+        nonlocal launches
+        warp_wide.LAUNCHES = warp_wide.LAUNCHES_PACKED = 0
+        t0 = time.perf_counter()
+        got = cli.main(argv + ["--platform", dev.type])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        n, packed = warp_wide.LAUNCHES, warp_wide.LAUNCHES_PACKED
+        launches += n
+        if got != rc:
+            raise AssertionError(f"{name}: exit {got}, expected {rc}")
+        if expect is not None and (n, packed) != (expect, expect):
+            raise AssertionError(f"{name}: {n} launches ({packed} packed), "
+                                 f"expected {expect}")
+        res[name] = {"rc": got, "launches": n, "s": s}
+        log(f"  {name}: exit {got}, {n} B1 launches ({packed} packed), "
+            f"{s:.2f} s")
+
+    def frames_of(name):
+        with video_io.VideoReader(os.path.join(work_dir, name)) as r:
+            return r.read_batch(frames + 1)
+
+    io = lambda out: ["--input", mp4, "--output", os.path.join(work_dir, out)]
+    run("stabilize --checkpoint fast --preset quality --chunk-frames 0",
+        ["stabilize", *io("ck_preset"), "--checkpoint", fast, "--preset",
+         "quality", "--chunk-frames", "0"], expect=chunks)
+    run("stabilize --preset fast --chunk-frames 16",
+        ["stabilize", *io("fast16"), "--preset", "fast", "--chunk-frames",
+         str(T_CHUNK)], expect=chunks)
+    live = frames_of("ck_preset")
+    if len(live) != frames:
+        raise AssertionError(f"stabilize wrote {len(live)} of {frames}")
+    same_bytes("--checkpoint with --preset, --chunk-frames 0", [live],
+               [frames_of("fast16")])
+    run("eval --warp-impl auto --chunk-frames 0",
+        ["eval", "--warp-impl", "auto", "--chunk-frames", "0", "--preset",
+         "fast", "--clips", "1", "--frames", str(frames), "--size",
+         str(height), str(width)])
+    if dev.type == "cuda" and res["eval --warp-impl auto --chunk-frames 0"][
+            "launches"] < 1:
+        raise AssertionError("eval launched no B1")
+    art = os.path.join(work_dir, "p13.dvsgt")
+    run("export --checkpoint fast --preset quality --warp-impl auto "
+        f"--for-platform {dev.type}",
+        ["export", "--checkpoint", fast, "--preset", "quality",
+         "--warp-impl", "auto", "--for-platform", dev.type, "--size",
+         str(height), str(width), "--output", art], expect=0)
+    run("stabilize --artifact", ["stabilize", "--artifact", art,
+                                 *io("artifact")], expect=chunks)
+    same_bytes("stabilize --artifact", [frames_of("artifact")], [live])
+    run("eval --warp-impl pallas", ["eval", "--warp-impl", "pallas"], rc=2,
+        expect=0)
+    log(f"  (b) {frames}-frame {width}x{height} mp4: the repaired argv == "
+        f"their counterparts bytewise; {launches} B1 launches")
+    return launches, res
+
+
+def phase_reference_argv(seed: int, dev, work_dir: str) -> tuple:
+    """Phase 13: (a) ``predict_grid``; (b) the repaired argv on the card.
+    Returns (B1 launches, results)."""
+    t0 = time.perf_counter()
+    res = {"predict_grid": p13_predict_grid(seed, dev)}
+    launches, res["argv"] = p13_argv(seed, dev, work_dir)
+    res["s"] = time.perf_counter() - t0
+    log(f"  phase 13 took {res['s']:.1f} s")
+    return launches, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3970,6 +4125,12 @@ def main(argv=None) -> int:
     for k, v in p12_train.items():
         train_counts[k] += v
 
+    log("== phase 13: the reference's argv and predict_grid")
+    with tempfile.TemporaryDirectory() as work_dir:
+        p13_launches, p13_results = phase_reference_argv(args.seed, dev,
+                                                         work_dir)
+    launches += p13_launches
+
     def entry(name, source, replaces, n_launches, err, rec):
         return {"name": name, "route": "cuda",
                 "source": f"dvsg_tpu_torch/csrc/{source}.cu",
@@ -4006,7 +4167,7 @@ def main(argv=None) -> int:
               "training": train_results, "batch": batch_results,
               "parallel_export": p9_results,
               "bf16_stacked": p10_results, "last_modules": p11_results,
-              "multicard": p12_results,
+              "multicard": p12_results, "reference_argv": p13_results,
               "eval": eval_results, "build_s": build_s, "ptxas": ptxas,
               "build_each_s": build_each,
               "wall_s": time.perf_counter() - t_start}

@@ -32,6 +32,9 @@ of the run there and prints its top ops and the device's idle share
 (utils/profiling.py). ``export`` writes the port's own artifact
 (export.py), which ``stabilize --artifact`` runs. ``--warp-impl
 pallas|lax`` is refused with exit code 2: the port has one warp route.
+As in the reference, ``--checkpoint`` wins over ``--preset``, and
+``--chunk-frames 0`` (or none) picks T: the port's T = 16 at every
+resolution.
 """
 
 from __future__ import annotations
@@ -41,10 +44,12 @@ import functools
 import os
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 
 _PRESETS = {"fast": "flagship_fast.npz", "quality": "flagship.npz"}
+AUTO_CHUNK_FRAMES = 16
 _CHECKPOINT_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "checkpoints")
@@ -99,14 +104,15 @@ def _apply_dtype(mcfg, args):
 
 def _load_any_checkpoint(path: str):
     """(state dict, ModelConfig) from a training checkpoint directory or a
-    single-file .npz."""
+    single-file .npz. A missing one raises ``FileNotFoundError`` naming
+    the file the reference names (the directory's config sidecar)."""
     from dvsg_tpu_torch.utils import checkpoint as ckpt
     if path.endswith(".npz"):
         params, mcfg = ckpt.load_npz(path)
-        print(f"loaded npz checkpoint {path}", file=sys.stderr)
+        print(f"loaded npz checkpoint {path}")
     else:
         params, mcfg, step = ckpt.load_checkpoint(path)
-        print(f"loaded checkpoint step {step} from {path}", file=sys.stderr)
+        print(f"loaded checkpoint step {step} from {path}")
     return params, mcfg
 
 
@@ -124,16 +130,9 @@ def _load_model(args):
     """(state dict, ModelConfig) that a command's flags select: the
     --checkpoint (directory or .npz), else the --preset, else with model
     flags an untrained identity model, else the committed fast model.
-    None, with the message printed, where they select nothing loadable."""
-    if args.checkpoint and args.preset:
-        _err("pass --checkpoint or --preset, not both")
-        return None
+    A missing checkpoint raises ``FileNotFoundError``."""
     if args.checkpoint or args.preset or not _custom_arch(args):
-        path = _checkpoint_path(args)
-        if not os.path.exists(path):
-            _err(f"checkpoint {path} does not exist")
-            return None
-        params, mcfg = _load_any_checkpoint(path)
+        params, mcfg = _load_any_checkpoint(_checkpoint_path(args))
         return params, _apply_dtype(mcfg, args)
     import torch
     from dvsg_tpu_torch.models import motion_cnn
@@ -142,6 +141,25 @@ def _load_model(args):
     print("WARNING: no --checkpoint given; using an untrained (identity) "
           "model", file=sys.stderr)
     return params, mcfg
+
+
+def _chunk_frames(args) -> Optional[int]:
+    """The chunk size ``--chunk-frames`` asks for (0 or none: the auto pick,
+    ``AUTO_CHUNK_FRAMES``), or None after printing why it is refused."""
+    if args.chunk_frames is not None and args.chunk_frames < 0:
+        _err("--chunk-frames must be >= 1 (or 0 for the auto pick)")
+        return None
+    return args.chunk_frames or AUTO_CHUNK_FRAMES
+
+
+def _auto_chunk_notice(args, height: int, width: int,
+                       n_clips: int = 1) -> None:
+    """The reference's notice that T was picked, printed where it was."""
+    if not args.chunk_frames:
+        extra = f" x{n_clips} clips" if n_clips > 1 else ""
+        print(f"--chunk-frames not given; auto-picked T={AUTO_CHUNK_FRAMES} "
+              f"for {width}x{height}{extra} ({args.platform} sweep)",
+              file=sys.stderr)
 
 
 def _add_warp_impl_arg(p: argparse.ArgumentParser) -> None:
@@ -256,7 +274,8 @@ def _add_common_args(p: argparse.ArgumentParser) -> None:
                         "encoder) or 'quality' (256^2 encoder)")
     # None sentinels: an --artifact run refuses what was baked at export.
     p.add_argument("--chunk-frames", type=int, default=None,
-                   help="frames per device step (default 16)")
+                   help="frames per device step (default or 0: the auto "
+                        "pick, 16)")
     p.add_argument("--strength", type=float, default=None,
                    help="stabilization strength in [0, 2]: 1 = full "
                         "correction, 0 = passthrough")
@@ -270,12 +289,10 @@ def _add_common_args(p: argparse.ArgumentParser) -> None:
 
 
 def _check_common(args):
-    """(params, ModelConfig, border crop or 'auto'), or None after printing
-    why the flags are refused."""
+    """(params, ModelConfig, border crop or 'auto', chunk frames), or None
+    after printing why the flags are refused."""
     if args.strength is None:
         args.strength = 1.0
-    if args.chunk_frames is None:
-        args.chunk_frames = 16
     if _bad_warp_impl(args.warp_impl):
         return None
     border_crop = _parse_border_crop(args.border_crop)
@@ -284,11 +301,10 @@ def _check_common(args):
     if not 0.0 <= args.strength <= 2.0:
         _err("--strength must be in [0, 2]")
         return None
-    if args.chunk_frames < 1:
-        _err("--chunk-frames must be >= 1")
+    chunk = _chunk_frames(args)
+    if chunk is None:
         return None
-    loaded = _load_model(args)
-    return None if loaded is None else (*loaded, border_crop)
+    return (*_load_model(args), border_crop, chunk)
 
 
 def _print_stages(timer) -> None:
@@ -354,9 +370,9 @@ def stabilize_main(argv=None) -> int:
         checked = _check_common(args)
         if checked is None:
             return 2
-        params, mcfg, border_crop = checked
+        params, mcfg, border_crop, chunk = checked
         try:
-            cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
+            cfg = StabilizeConfig(model=mcfg, chunk_frames=chunk,
                                   strength=args.strength,
                                   **_smooth_kwargs(args))
             if args.overlap:
@@ -380,6 +396,8 @@ def stabilize_main(argv=None) -> int:
                         f"{reader.height} (export again with --size, or "
                         "stabilize from a checkpoint)")
         stab = loaded.engine()
+    else:
+        _auto_chunk_notice(args, reader.height, reader.width)
     writer = video_io.VideoWriter(args.output, reader.width, reader.height,
                                   reader.fps)
     timer = StageTimer()
@@ -463,9 +481,6 @@ def _load_artifact(args):
         _err(f"{', '.join(baked)}: baked into the artifact at export time; "
              "export again, or stabilize from a checkpoint")
         return None
-    if not os.path.exists(args.artifact):
-        _err(f"artifact {args.artifact} does not exist")
-        return None
     from dvsg_tpu_torch import export as export_lib
     try:
         loaded = export_lib.load_exported(args.artifact,
@@ -507,7 +522,7 @@ def stabilize_batch_main(argv=None) -> int:
     checked = _check_common(args)
     if checked is None:
         return 2
-    params, mcfg, border_crop = checked
+    params, mcfg, border_crop, chunk = checked
 
     import torch
 
@@ -516,7 +531,7 @@ def stabilize_batch_main(argv=None) -> int:
     from dvsg_tpu_torch.pipeline import pathsmooth
 
     try:
-        cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
+        cfg = StabilizeConfig(model=mcfg, chunk_frames=chunk,
                               strength=args.strength, **_smooth_kwargs(args))
         pathsmooth.lag_reject(cfg, "stabilize-batch (stabilize each clip "
                               "for a lag run)")
@@ -573,6 +588,8 @@ def _run_batch(args, cfg, params, border_crop) -> int:
                     f"{args.inputs[0]} is {w}x{h}; run them as separate "
                     "jobs (or through the server, which groups by "
                     "resolution)")
+        _auto_chunk_notice(args, h, w, len(args.inputs) // (
+            n_dev if mesh is not None else 1))
         if border_crop == "auto":
             border_crop = _run_autocrop_scan(cfg, params, args.inputs,
                                              device)
@@ -690,8 +707,10 @@ def eval_main(argv=None) -> int:
                    metavar=("H", "W"))
     p.add_argument("--clips", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--chunk-frames", type=int, default=16,
-                   help="frames per device step (default 16)")
+    p.add_argument("--chunk-frames", type=int, default=None,
+                   help="frames per device step (default or 0: the auto "
+                        "pick, 16)")
+    _add_warp_impl_arg(p)
     p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda",
                    help="device to run on (default cuda)")
     p.add_argument("--metrics-out", default=None)
@@ -716,12 +735,10 @@ def eval_main(argv=None) -> int:
                         "stabilize --path-smooth-lag)")
     _add_model_args(p)
     args = p.parse_args(argv)
-    if args.chunk_frames < 1:
-        return _err("--chunk-frames must be >= 1")
-    loaded = _load_model(args)
-    if loaded is None:
+    chunk = _chunk_frames(args)
+    if _bad_warp_impl(args.warp_impl) or chunk is None:
         return 2
-    params, mcfg = loaded
+    params, mcfg = _load_model(args)
 
     import torch
 
@@ -731,8 +748,9 @@ def eval_main(argv=None) -> int:
     from dvsg_tpu_torch.utils.metrics import write_metrics_jsonl
 
     h, w = args.size
+    _auto_chunk_notice(args, h, w)
     try:
-        cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
+        cfg = StabilizeConfig(model=mcfg, chunk_frames=chunk,
                               path_smooth=args.path_smooth,
                               path_smooth_lag=args.path_smooth_lag)
     except ValueError as e:
@@ -801,8 +819,10 @@ def export_main(argv=None) -> int:
     p.add_argument("--size", type=int, nargs=2, required=True,
                    metavar=("H", "W"),
                    help="frame resolution the program is traced for")
-    p.add_argument("--chunk-frames", type=int, default=16,
-                   help="frames per device step (default 16)")
+    p.add_argument("--chunk-frames", type=int, default=None,
+                   help="frames per device step (default or 0: the auto "
+                        "pick, 16)")
+    _add_warp_impl_arg(p)
     p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda",
                    help="device the program is traced for and runs on "
                         "(default cuda)")
@@ -817,15 +837,16 @@ def export_main(argv=None) -> int:
     _add_smooth_args(p)
     _add_model_args(p)
     args = p.parse_args(argv)
-    loaded = _load_model(args)
-    if loaded is None:
+    chunk = _chunk_frames(args)
+    if _bad_warp_impl(args.warp_impl) or chunk is None:
         return 2
-    params, mcfg = loaded
+    params, mcfg = _load_model(args)
     from dvsg_tpu_torch import export as export_lib
     from dvsg_tpu_torch.config import StabilizeConfig
     h, w = args.size
+    _auto_chunk_notice(args, h, w)
     try:
-        cfg = StabilizeConfig(model=mcfg, chunk_frames=args.chunk_frames,
+        cfg = StabilizeConfig(model=mcfg, chunk_frames=chunk,
                               border_crop=args.border_crop,
                               strength=args.strength, **_smooth_kwargs(args))
         exp = export_lib.export_chunk_program(

@@ -54,6 +54,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dvsg_tpu_torch.config import ModelConfig
+from dvsg_tpu_torch.ops import grid as grid_ops
 
 GN_GROUPS = 8
 GN_EPS = 1e-6
@@ -474,6 +475,15 @@ def predict_offsets(model: MotionEstimator, windows: torch.Tensor
     feats = encode_frames(model, frames.reshape(b * n, mh, mw, c))
     return offsets_from_feature_windows(
         model, feats.reshape(b, n, *feats.shape[1:]))
+
+
+def predict_grid(model: MotionEstimator, windows: torch.Tensor,
+                 out_height: int, out_width: int) -> torch.Tensor:
+    """Windows (B, Hm, Wm, N*C) → dense full-resolution sampling grids
+    (B, H, W, 2): ``predict_offsets`` then ``grid_from_offsets``,
+    differentiable in the model's parameters."""
+    return grid_ops.grid_from_offsets(predict_offsets(model, windows),
+                                      out_height, out_width)
 
 
 def encode_frames(model: MotionEstimator, frames: torch.Tensor

@@ -31,11 +31,21 @@ def join_group(rank: int, world: int, store_path: str,
     that waits longer than ``timeout_s`` raises. The ranks run on this
     host, so ``rank`` is also this process's ``LOCAL_RANK``
     (``mesh.rank_device`` maps it to its card): a ``LOCAL_RANK`` inherited
-    from the spawning process would put every rank on one card."""
+    from the spawning process would put every rank on one card.
+
+    A gloo group returns only when every rank has joined: gloo's
+    ``init_process_group`` returns on a rank once its own side of each
+    connection is up, and a rank that then leaves the group at once (a
+    short case) closed a connection its peer was still handshaking on
+    ("Gloo connectFullMesh failed ... Connection closed by peer"), a few
+    times in a hundred groups on a loaded host. NCCL connects at its
+    first collective, on the rank's card."""
     os.environ["LOCAL_RANK"] = str(rank)
     dist.init_process_group(backend, init_method=f"file://{store_path}",
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=timeout_s))
+    if backend == "gloo":
+        dist.barrier()
 
 
 def run_ranks(fn, n: int, args=(), timeout_s: float = 300.0) -> None:

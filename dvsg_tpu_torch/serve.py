@@ -303,9 +303,7 @@ def main(argv=None) -> int:
     border_crop = cli._parse_border_crop(args.border_crop)
     if border_crop is None:
         return 2
-    if args.checkpoint and args.preset:
-        return cli._err("pass --checkpoint or --preset, not both")
-    path = cli._checkpoint_path(args)
+    path = cli._checkpoint_path(args)       # --checkpoint wins
     if not os.path.exists(path):
         return cli._err(f"checkpoint {path} does not exist")
     params, mcfg = cli._load_any_checkpoint(path)

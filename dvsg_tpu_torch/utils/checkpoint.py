@@ -131,13 +131,17 @@ def latest_step(path: str) -> Optional[int]:
 
 def load_checkpoint(path: str, step: Optional[int] = None
                     ) -> tuple[dict[str, torch.Tensor], ModelConfig, int]:
-    """Returns (state dict on the CPU, model config, step)."""
+    """Returns (state dict on the CPU, model config, step). The config is
+    read first, from ``model_config.json``, as the reference reads it: a
+    missing directory raises ``FileNotFoundError`` naming that file."""
+    path = os.path.abspath(path)
+    with open(os.path.join(path, _CONFIG_FILE)) as f:
+        cfg = model_config_from_dict(json.load(f))
     if step is None:
         step = latest_step(path)
         if step is None:
             raise FileNotFoundError(f"no params checkpoints under {path}")
-    params, cfg = load_npz(os.path.join(os.path.abspath(path), _PARAMS_DIR,
-                                        f"{step}.npz"))
+    params, _ = load_npz(os.path.join(path, _PARAMS_DIR, f"{step}.npz"))
     return params, cfg, step
 
 

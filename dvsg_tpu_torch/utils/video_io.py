@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -84,6 +84,20 @@ class VideoReader:
             n = int(self._cap.get(cv2.CAP_PROP_FRAME_COUNT))
             self.num_frames = n if n > 0 else None
         self._pos = 0
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        """(height, width) of the frames."""
+        return (self.height, self.width)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        return self
+
+    def __next__(self) -> np.ndarray:
+        frame = self.read()
+        if frame is None:
+            raise StopIteration
+        return frame
 
     def read(self, out: Optional[np.ndarray] = None) -> Optional[np.ndarray]:
         """Next frame as (H, W, 3) uint8 RGB, or None at end of stream."""

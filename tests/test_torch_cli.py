@@ -130,7 +130,7 @@ def test_stabilize_metrics_out_and_warp_impl_auto(tmp_path):
 @pytest.mark.parametrize("extra,match", [
     (["--warp-impl", "lax"], "one warp route"),
     (["--warp-impl", "pallas"], "one warp route"),
-    (["--checkpoint", FAST, "--preset", "fast"], "not both"),
+    (["--chunk-frames", "-1"], "--chunk-frames must be >= 1"),
 ])
 @pytest.mark.parametrize("command", ["stabilize", "stabilize-batch"])
 def test_refused_flags_exit_2(tmp_path, capsys, command, extra, match):
@@ -305,3 +305,186 @@ def test_stabilize_batch_closes_writers_on_device_failure(tmp_path,
                   str(tmp_path / "o0"), str(tmp_path / "o1"),
                   "--platform", "cpu"])
     assert len(closed) == 2
+
+
+# --- the reference's argv (C6) -----------------------------------------------
+
+SMALL = os.path.join(ROOT, "checkpoints", "small.npz")
+_EVAL = ["--clips", "1", "--frames", "4", "--size", "64", "64"]
+_EXPORT = ["--size", "64", "64", "--output", "{tmp}/m"]
+_IO = {"stabilize": ["--input", "{in}", "--output", "{tmp}/o"],
+       "stabilize-batch": ["--inputs", "{in}", "--outputs", "{tmp}/o"],
+       "eval": _EVAL, "export": _EXPORT}
+_T4 = ["--chunk-frames", "4"]
+_CK = ["--checkpoint", SMALL]
+
+# Where the two CLIs part, and why: the port's exit code and last stderr
+# line stand for themselves there.
+_PORT_OWN_LINE = "the port refuses with its own line"
+ARGV_CASES = {
+    **{f"{c}-checkpoint-and-preset": [c, *io, *_CK, "--preset", "quality",
+                                      *_T4] for c, io in _IO.items()},
+    **{f"{c}-warp-impl-{w}": [c, *_IO[c], *_CK, *_T4, "--warp-impl", w]
+       for c in ("eval", "export") for w in ("auto", "pallas", "lax")},
+    **{f"{c}-chunk-frames-{t}": [c, *io, *_CK, "--chunk-frames", t]
+       for c, io in _IO.items() for t in ("0", "-1")},
+    **{f"{c}-missing-checkpoint": [c, *io, "--checkpoint", "{tmp}/no.npz",
+                                   *_T4] for c, io in _IO.items()},
+    "stabilize-missing-checkpoint-dir": ["stabilize", *_IO["stabilize"],
+                                         "--checkpoint", "{tmp}/nodir"],
+    "stabilize-missing-artifact": ["stabilize", *_IO["stabilize"],
+                                   "--artifact", "{tmp}/no.dvsgt"],
+}
+# rc (port, reference) where they differ, else one rc.
+ARGV_DIFFERS = {
+    # The reference runs its lax warp; the port has one warp route (C2).
+    "eval-warp-impl-lax": (2, 0), "export-warp-impl-lax": (2, 0),
+}
+# Cases whose last stderr lines differ, both exiting 2.
+LINE_DIFFERS = {
+    # The reference fails in its Pallas call ("Only interpret mode is
+    # supported on CPU backend"); the port names its one warp route.
+    "eval-warp-impl-pallas", "export-warp-impl-pallas",
+    # A negative T: the reference fails wherever the run first trips on it
+    # (numpy's "negative dimensions are not allowed", "need at least one
+    # array to concatenate", a zero-size export); the port refuses it
+    # before any work with "--chunk-frames must be >= 1".
+    *(f"{c}-chunk-frames--1" for c in _IO),
+}
+
+
+@pytest.fixture(scope="module")
+def argv_input(tmp_path_factory):
+    """A seeded 4-frame 64x64 frame directory."""
+    d = tmp_path_factory.mktemp("argv")
+    return _write_dir(d / "in", _clip(4, key=21, h=64, w=64))
+
+
+def _run(main, argv, tmp, inp, capsys):
+    """(exit code, last stderr line, stdout) of ``main`` on ``argv`` with
+    its paths under ``tmp``, on the CPU."""
+    os.makedirs(tmp, exist_ok=True)
+    argv = [a.format(tmp=tmp, **{"in": inp}) for a in argv]
+    rc = main(argv + ["--platform", "cpu"])
+    out = capsys.readouterr()
+    lines = out.err.strip().splitlines()
+    return rc, (lines[-1] if lines else ""), out.out
+
+
+@pytest.mark.parametrize("case", sorted(ARGV_CASES))
+def test_reference_argv_exits_as_the_reference(case, argv_input, tmp_path,
+                                               capsys):
+    """Each argv through both CLIs on the CPU (small.npz, 64x64): the
+    exit code and the last stderr line are the reference's, except where
+    ``ARGV_DIFFERS``/``LINE_DIFFERS`` record why they part.
+
+    * ``--checkpoint`` with ``--preset``: the checkpoint wins (the quality
+      preset's weights would not fit small.npz's frames equally).
+    * ``--chunk-frames 0``: the auto pick, T = 16, with the reference's
+      notice as the last line ("auto-picked T=16 for 64x64 (cpu sweep)").
+    * a missing ``--checkpoint`` (an .npz, a directory) or ``--artifact``:
+      ``ERROR: not found: [Errno 2] No such file or directory: '<path>'``
+      (for a directory the reference names its ``model_config.json``).
+    """
+    from dvsg_tpu import cli as jcli
+    argv = ARGV_CASES[case]
+    rc, line, out = _run(cli.main, argv, str(tmp_path / "port"),
+                         argv_input, capsys)
+    jrc, jline, _ = _run(jcli.main, argv, str(tmp_path / "ref"), argv_input,
+                         capsys)
+    want_rc = ARGV_DIFFERS.get(case, (jrc, jrc))
+    assert (rc, jrc) == want_rc, (line, jline)
+    if case in LINE_DIFFERS:
+        assert rc == jrc == 2 and line.startswith("ERROR: ")
+    elif case not in ARGV_DIFFERS:
+        assert line == jline.replace(str(tmp_path / "ref"),
+                                     str(tmp_path / "port"))
+    if "missing" in case:
+        assert line.startswith("ERROR: not found: [Errno 2] No such file")
+    if case == "stabilize-checkpoint-and-preset":
+        # The checkpoint's weights ran, not the preset's.
+        params, mcfg = ckpt.load_npz(SMALL)
+        np.testing.assert_array_equal(
+            _read_dir(tmp_path / "port" / "o"),
+            _stab(params, mcfg).stabilize_clip(_read_dir(argv_input)))
+    if case == "stabilize-chunk-frames-0":
+        params, mcfg = ckpt.load_npz(SMALL)
+        want = Stabilizer(StabilizeConfig(model=mcfg, chunk_frames=16),
+                          params, device="cpu")
+        np.testing.assert_array_equal(
+            _read_dir(tmp_path / "port" / "o"),
+            want.stabilize_clip(_read_dir(argv_input)))
+    if case == "eval-warp-impl-auto":
+        assert "psnr_gain_db" in out
+
+
+def _parser(main, argv=()):
+    """The ArgumentParser ``main`` builds, caught at its parse."""
+    import argparse
+    from unittest import mock
+
+    class Caught(Exception):
+        pass
+
+    def catch(self, *a, **k):
+        raise Caught(self)
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", catch):
+        with pytest.raises(Caught) as got:
+            main(list(argv))
+    return got.value.args[0]
+
+
+def _options(parser) -> set:
+    return {o for a in parser._actions for o in a.option_strings}
+
+
+def test_every_reference_option_is_accepted():
+    """Every option string of the reference's parsers (each subcommand and
+    the server) is one the port's parser takes, so a flag the reference
+    adds cannot drift unseen. The port's own extras (the smoothing set on
+    export and stabilize-batch, --for-platform choices) are not held."""
+    from dvsg_tpu import cli as jcli
+    from dvsg_tpu import serve as jserve
+    from dvsg_tpu_torch import serve
+    pairs = {name: (getattr(cli, f"{fn}_main"), getattr(jcli, f"{fn}_main"))
+             for name, fn in (("stabilize", "stabilize"),
+                              ("stabilize-batch", "stabilize_batch"),
+                              ("train", "train"), ("eval", "eval"),
+                              ("export", "export"))}
+    pairs["serve"] = (serve.main, jserve.main)
+    for name, (port, ref) in pairs.items():
+        missing = _options(_parser(ref)) - _options(_parser(port))
+        assert not missing, f"{name}: the port refuses {sorted(missing)}"
+    assert "--warp-impl" in _options(_parser(cli.eval_main))
+
+
+def test_server_takes_the_checkpoint_over_the_preset(monkeypatch, capsys):
+    """``serve --checkpoint small.npz --preset quality`` serves the
+    checkpoint, as the reference's server does (its ``_resolve_preset``).
+    A missing checkpoint: the reference's server raises
+    ``FileNotFoundError`` (exit 1, a traceback); the port's keeps its one
+    line, ``ERROR: checkpoint <path> does not exist``, and exit 2."""
+    from dvsg_tpu_torch import serve
+    seen = {}
+
+    class Server:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            pass
+
+    def make_server(host, port, engine, desc, **kw):
+        seen.update(desc=desc, cfg=engine.cfg)
+        return Server()
+    monkeypatch.setattr(serve, "make_server", make_server)
+    assert serve.main(["--checkpoint", SMALL, "--preset", "quality",
+                       "--platform", "cpu"]) == 0
+    assert seen["desc"] == f"checkpoint:{SMALL}"
+    assert seen["cfg"].model == ckpt.load_npz(SMALL)[1]
+    assert serve.main(["--checkpoint", "/nonexistent.npz",
+                       "--platform", "cpu"]) == 2
+    assert capsys.readouterr().err.strip().splitlines()[-1] == (
+        "ERROR: checkpoint /nonexistent.npz does not exist")

@@ -177,7 +177,7 @@ def test_eval_cli_with_path_smoothing(capsys):
 
 @pytest.mark.parametrize("flags", [["--path-smooth-lag", "4"],
                                    ["--preset", "fast", "--checkpoint", "x"],
-                                   ["--chunk-frames", "0"]])
+                                   ["--chunk-frames", "-1"]])
 def test_eval_cli_refuses(flags, capsys):
     assert cli.eval_main(flags + ["--platform", "cpu"]) == 2
     assert "ERROR" in capsys.readouterr().err

@@ -188,3 +188,36 @@ def test_quality_table_defaults_to_the_card():
         capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert "pass device='cpu'" in res.stderr
+
+
+def _resolve(name: str):
+    """The object a dotted ``dvsg_tpu_torch`` name stands for: the longest
+    importable module prefix, then attributes."""
+    import importlib
+    parts = name.split(".")
+    for i in range(len(parts), 0, -1):
+        try:
+            obj = importlib.import_module(".".join(parts[:i]))
+        except ImportError:
+            continue
+        for attr in parts[i:]:
+            obj = getattr(obj, attr)
+        return obj
+    raise ImportError(name)
+
+
+@pytest.mark.parametrize("doc", ["API.md", "DEPLOY.md"])
+def test_docs_cite_only_what_the_port_has(doc):
+    """Every ``dvsg_tpu_torch`` name in the port's docs (a dotted name in
+    backticks, a call's arguments dropped) resolves, and every file of the
+    package it names exists."""
+    import re
+    with open(os.path.join(ROOT, "docs", "torch", doc)) as f:
+        text = f.read()
+    names = set(re.findall(r"`(dvsg_tpu_torch(?:\.\w+)+)", text))
+    paths = set(re.findall(r"(dvsg_tpu_torch/[\w/]+\.\w+)", text))
+    assert len(names) > (50 if doc == "API.md" else 10)
+    for name in sorted(names):
+        _resolve(name)
+    for path in sorted(paths):
+        assert os.path.isfile(os.path.join(ROOT, path)), path

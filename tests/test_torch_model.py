@@ -19,6 +19,7 @@ from dvsg_tpu.models import motion_cnn as jmodel
 from dvsg_tpu.utils import checkpoint as jckpt
 from dvsg_tpu_torch.config import ModelConfig
 from dvsg_tpu_torch.models import motion_cnn as tmodel
+from dvsg_tpu_torch.ops import grid as grid_ops
 from dvsg_tpu_torch.utils import checkpoint as tckpt
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -192,3 +193,81 @@ def test_model_variants_build_and_start_at_identity(kw):
     if cfg.arch == "stacked":
         with pytest.raises(ValueError, match="corr architecture"):
             tmodel.encode_frames(model, windows[..., :3])
+
+
+GRID_HW = ((48, 56), (130, 200))
+
+
+@pytest.fixture(scope="module")
+def ref_grids(pair):
+    """The reference's predict_grid at both output resolutions on seeded
+    windows, in one jitted call (its model runs once)."""
+    _, jcfg, params, _ = pair
+    mh, mw = jcfg.model_size
+    w = np.random.default_rng(5).uniform(
+        -0.5, 0.5, (2, mh, mw, jcfg.window * 3)).astype(np.float32)
+    grids = jax.jit(lambda p, x: [jmodel.predict_grid(jcfg, p, x, *hw)
+                                  for hw in GRID_HW])(params, jnp.asarray(w))
+    return w, dict(zip(GRID_HW, map(np.asarray, grids)))
+
+
+@pytest.mark.parametrize("out_hw", GRID_HW)
+def test_predict_grid_matches_reference(pair, ref_grids, out_hw):
+    """Dense grids from the same windows and weights: within the offsets'
+    atol 1e-4 (the grid is the identity plus the upsampled offsets), at
+    two output resolutions, against ``grid_from_offsets(predict_offsets)``
+    bit for bit."""
+    model = pair[3]
+    w, want = ref_grids
+    ref = want[out_hw]
+    x = torch.from_numpy(w)
+    with torch.no_grad():
+        ours = tmodel.predict_grid(model, x, *out_hw)
+        composed = grid_ops.grid_from_offsets(
+            tmodel.predict_offsets(model, x), *out_hw)
+    assert ours.shape == ref.shape == (2, *out_hw, 2)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=1e-4)
+    torch.testing.assert_close(ours, composed, rtol=0, atol=0)
+
+
+# A small model whose head moves pixels: a seeded init with numpy noise on
+# every leaf (as tests/test_torch_train.py perturbs it), so the zero
+# head_out kernel does not silence the gradients before it.
+GRAD_KW = dict(window=3, model_size=(32, 32), grid_size=(8, 8),
+               base_features=8, blocks_per_level=1, max_offset=0.15)
+
+
+def test_predict_grid_gradients_match_jax_grad():
+    """Every parameter's gradient of sum(grid**2) through autograd against
+    jax.grad through the reference's predict_grid: the max-abs error over
+    each tensor's largest gradient below 1e-4, the training tests'
+    tolerance."""
+    from dvsg_tpu.config import ModelConfig as JModelConfig
+    jcfg, cfg = JModelConfig(**GRAD_KW), ModelConfig(**GRAD_KW)
+    rng = np.random.default_rng(6)
+    flat = {k: v + 0.05 * rng.standard_normal(v.shape).astype(np.float32)
+            for k, v in tckpt.params_to_flax(tmodel.init_params(
+                cfg, torch.Generator().manual_seed(6))).items()}
+    params = {}
+    for path, v in flat.items():
+        *mods, leaf = path.split("/")
+        node = params
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = jnp.asarray(v)
+    w = rng.uniform(-0.5, 0.5, (2, 32, 32, 9)).astype(np.float32)
+    want = jax.jit(jax.grad(lambda p: jnp.sum(jmodel.predict_grid(
+        jcfg, p, jnp.asarray(w), 40, 48) ** 2)))(params)
+    want = tckpt.params_from_flax(_flat(want), cfg)
+
+    model = tmodel.MotionEstimator(cfg)
+    model.load_state_dict(tckpt.params_from_flax(flat, cfg))
+    tmodel.predict_grid(model, torch.from_numpy(w), 40, 48).pow(2).sum(
+        ).backward()
+    named = dict(model.named_parameters())
+    assert set(named) == set(want)
+    for name, p in named.items():
+        scale = float(want[name].abs().max())
+        assert scale > 0, name
+        err = float((p.grad - want[name]).abs().max()) / scale
+        assert err < 1e-4, (name, err)

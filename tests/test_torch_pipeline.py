@@ -229,7 +229,7 @@ def test_cli_resume_dir_and_quality_preset(clip, tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--artifact", "m.dvsgx"],
-    ["--border-crop", "0.5"], ["--strength", "3"], ["--chunk-frames", "0"],
+    ["--border-crop", "0.5"], ["--strength", "3"], ["--chunk-frames", "-1"],
     ["--checkpoint", "nope.npz"], ["--path-smooth-lag", "8"],
 ])
 def test_cli_refuses_unported_and_bad_flags(tmp_path, extra, capsys):
@@ -238,7 +238,7 @@ def test_cli_refuses_unported_and_bad_flags(tmp_path, extra, capsys):
     assert rc == 2
     err = capsys.readouterr().err
     if extra[0] == "--artifact":
-        assert "does not exist" in err
+        assert "not found: [Errno 2]" in err
     if extra[0] == "--path-smooth-lag":       # a lag needs a horizon
         assert "path_smooth_lag needs path_smooth" in err
 
