@@ -28,8 +28,8 @@ model. ``--checkpoint`` takes a training checkpoint directory or an
 f32); on a loaded checkpoint it re-applies onto the checkpoint's config,
 and it is no architecture flag (the committed weights run in either
 dtype). ``stabilize --profile-dir DIR`` writes a ``torch.profiler`` trace
-of the run there and prints its top ops and the device's idle share
-(utils/profiling.py). ``export`` writes the port's own artifact
+of the run there and prints its top ops, its stages' spans and the
+device's idle share (utils/profiling.py). ``export`` writes the port's own artifact
 (export.py), which ``stabilize --artifact`` runs. ``--warp-impl
 pallas|lax`` is refused with exit code 2: the port has one warp route.
 As in the reference, ``--checkpoint`` wins over ``--preset``, and
@@ -434,8 +434,10 @@ def stabilize_main(argv=None) -> int:
 
 def _print_profile(trace_dir: str) -> None:
     """The reference's ``[profile]`` lines: the eight ops of the largest
-    total time, then the fused warp (B1) where it is not among them, then
-    the device's busy and idle share (a card's trace only)."""
+    total time, then the fused warp (B1) where it is not among them; then
+    one line per span of the program (its count, host time and, on a
+    card, the device's idle time while it was open) and the device's busy,
+    NCCL and idle shares of the profiled window (a card's trace only)."""
     from dvsg_tpu_torch.utils import profiling
     summary = profiling.summarize_trace(trace_dir)
     names = list(summary)[:8]
@@ -445,10 +447,16 @@ def _print_profile(trace_dir: str) -> None:
         rec = summary[name]
         print(f"  [profile] {rec['mean_ms']:8.2f} ms x{rec['count']:3d} "
               f"{name[:60]}")
+    for name, rec in profiling.span_stats(trace_dir).items():
+        idle = ("" if rec["idle_ms"] is None
+                else f", device idle {rec['idle_ms']:.2f} ms")
+        print(f"  [profile] span {name} x{rec['count']}: host "
+              f"{rec['host_ms']:.2f} ms{idle}")
     busy = profiling.device_busy_stats(trace_dir)
     if busy is not None:
         print(f"  [profile] device busy {busy['busy_ms']:.2f} of "
-              f"{busy['span_ms']:.2f} ms, idle {busy['idle_pct']:.1f}%")
+              f"{busy['window_ms']:.2f} ms, NCCL {busy['nccl_pct']:.1f}%, "
+              f"idle {busy['idle_pct']:.1f}%")
 
 
 def _load_artifact(args):

@@ -45,10 +45,11 @@ _SENTINEL = None
 
 
 def _decode_worker(reader, chunk_frames: int, out_q: "queue.Queue",
-                   err: list) -> None:
+                   err: list, timer: StageTimer) -> None:
     try:
         while True:
-            chunk = reader.read_batch(chunk_frames)
+            with timer.stage("decode"):
+                chunk = reader.read_batch(chunk_frames)
             if chunk.shape[0] == 0:
                 break
             out_q.put(chunk)
@@ -61,7 +62,7 @@ def _decode_worker(reader, chunk_frames: int, out_q: "queue.Queue",
 
 
 def _encode_worker(writer, in_q: "queue.Queue", free_q: "queue.Queue",
-                   err: list) -> None:
+                   err: list, timer: StageTimer) -> None:
     """Write each (slot, frames) item and hand its slot back; after a
     failure keep draining (and freeing slots), so no producer blocks on a
     dead consumer."""
@@ -72,7 +73,8 @@ def _encode_worker(writer, in_q: "queue.Queue", free_q: "queue.Queue",
         slot, frames = item
         if not err:
             try:
-                writer.write_batch(frames)
+                with timer.stage("encode"):
+                    writer.write_batch(frames)
             except Exception as e:
                 err.append(e)
         free_q.put(slot)
@@ -86,7 +88,9 @@ def stabilize_stream_overlapped(stab: Stabilizer, reader, writer,
     resume). Stages timed on the device loop: ``decode_wait``, ``h2d``
     (staging and the upload's enqueue), ``dispatch`` (queuing the chunk
     step), ``d2h`` (waiting for the previous chunk and its copy) and
-    ``encode_wait`` (waiting for a free output buffer).
+    ``encode_wait`` (waiting for a free output buffer); on the worker
+    threads, ``decode`` (each ``read_batch``, the one that finds the end
+    included) and ``encode`` (each ``write_batch``): their busy time.
     """
     timer = timer or StageTimer()
     pathsmooth.lag_reject(stab.cfg, "the overlapped stream loop "
@@ -101,10 +105,10 @@ def stabilize_stream_overlapped(stab: Stabilizer, reader, writer,
     free_q: "queue.Queue" = queue.Queue()
     errors: list = []
     dec = threading.Thread(target=_decode_worker,
-                           args=(reader, t_chunk, decode_q, errors),
+                           args=(reader, t_chunk, decode_q, errors, timer),
                            daemon=True)
     enc = threading.Thread(target=_encode_worker,
-                           args=(writer, encode_q, free_q, errors),
+                           args=(writer, encode_q, free_q, errors, timer),
                            daemon=True)
     dec.start()
     enc.start()

@@ -29,6 +29,7 @@ from dvsg_tpu_torch.ops import grid as grid_ops
 from dvsg_tpu_torch.ops import warp as warp_ops
 from dvsg_tpu_torch.pipeline.stabilize import build_windows, exact_math
 from dvsg_tpu_torch.train import synthetic
+from dvsg_tpu_torch.utils.metrics import span
 
 # Consecutive windows per sample for the temporal-smoothness term.
 _STEPS_PER_CLIP = 2
@@ -128,15 +129,18 @@ def _draw_stills(generator: torch.Generator, cfg: TrainConfig, bank,
 def draw_batch(generator: torch.Generator, cfg: TrainConfig, bank=None,
                device="cpu"):
     """The random half of a batch: (stills (B, mh, mw, C), camera paths
-    (B, clip_len, 5), flicker gains (B, clip_len)) on ``device``."""
-    clip_len = cfg.model.window + _STEPS_PER_CLIP - 1
-    b = cfg.batch_size
-    stills = _draw_stills(generator, cfg, bank, device)
-    paths = synthetic.random_camera_path(generator, clip_len, batch=(b,),
-                                         device=device)
-    gains = 1.0 + 0.03 * (2.0 * torch.rand(
-        (b, clip_len), generator=generator, device=generator.device) - 1.0)
-    return stills, paths, gains.to(device)
+    (B, clip_len, 5), flicker gains (B, clip_len)) on ``device``. Traced
+    as the span ``draw``."""
+    with span("draw"):
+        clip_len = cfg.model.window + _STEPS_PER_CLIP - 1
+        b = cfg.batch_size
+        stills = _draw_stills(generator, cfg, bank, device)
+        paths = synthetic.random_camera_path(generator, clip_len,
+                                             batch=(b,), device=device)
+        gains = 1.0 + 0.03 * (2.0 * torch.rand(
+            (b, clip_len), generator=generator,
+            device=generator.device) - 1.0)
+        return stills, paths, gains.to(device)
 
 
 @torch.no_grad()
@@ -156,38 +160,40 @@ def render_batch(stills: torch.Tensor, paths: torch.Tensor,
 
     Returns (input_frames (B, clip_len, mh, mw, C) — flickered, centered
     at 0, lasts (B, S, mh, mw, C), target_frames (B, S, mh, mw, C),
-    target_offsets (B, S, gh, gw, 2)) with S = _STEPS_PER_CLIP.
+    target_offsets (B, S, gh, gw, 2)) with S = _STEPS_PER_CLIP. Traced as
+    the span ``render``.
     """
-    mcfg = cfg.model
-    mh, mw = mcfg.model_size
-    gh, gw = mcfg.grid_size
-    n = mcfg.window
-    s_steps = _STEPS_PER_CLIP
-    b, clip_len = paths.shape[:2]
+    with span("render"):
+        mcfg = cfg.model
+        mh, mw = mcfg.model_size
+        gh, gw = mcfg.grid_size
+        n = mcfg.window
+        s_steps = _STEPS_PER_CLIP
+        b, clip_len = paths.shape[:2]
 
-    # Window-mean poses and ground-truth stabilizing offsets per step.
-    win_paths = torch.stack([paths[:, s:s + n] for s in range(s_steps)],
-                            dim=1)                               # (B,S,n,5)
-    mean_params = win_paths.mean(dim=2)                          # (B,S,5)
-    t_offs = synthetic.theta_to_offsets(
-        synthetic.stabilizing_theta(win_paths), gh, gw)
+        # Window-mean poses and ground-truth stabilizing offsets per step.
+        win_paths = torch.stack([paths[:, s:s + n]
+                                 for s in range(s_steps)], dim=1)  # (B,S,n,5)
+        mean_params = win_paths.mean(dim=2)                        # (B,S,5)
+        t_offs = synthetic.theta_to_offsets(
+            synthetic.stabilizing_theta(win_paths), gh, gw)
 
-    all_thetas = torch.cat([
-        synthetic.jitter_theta(paths).reshape(-1, 3, 3),
-        synthetic.jitter_theta(mean_params).reshape(-1, 3, 3)])
-    all_grids = grid_ops.homography_grid(all_thetas, mh, mw)
-    src = torch.cat([stills.repeat_interleave(clip_len, dim=0),
-                     stills.repeat_interleave(s_steps, dim=0)])
-    warped = warp_ops.warp_batch(src, all_grids)
-    frames = warped[:b * clip_len].reshape(b, clip_len, mh, mw, -1)
-    t_frames = warped[b * clip_len:].reshape(b, s_steps, mh, mw, -1)
+        all_thetas = torch.cat([
+            synthetic.jitter_theta(paths).reshape(-1, 3, 3),
+            synthetic.jitter_theta(mean_params).reshape(-1, 3, 3)])
+        all_grids = grid_ops.homography_grid(all_thetas, mh, mw)
+        src = torch.cat([stills.repeat_interleave(clip_len, dim=0),
+                         stills.repeat_interleave(s_steps, dim=0)])
+        warped = warp_ops.warp_batch(src, all_grids)
+        frames = warped[:b * clip_len].reshape(b, clip_len, mh, mw, -1)
+        t_frames = warped[b * clip_len:].reshape(b, s_steps, mh, mw, -1)
 
-    # Photometric flicker on the model's INPUT frames only: motion
-    # estimation must be exposure-robust; the frame being warped and the
-    # targets stay clean (a stabilizer doesn't correct exposure).
-    flicked = frames * gains[..., None, None, None] - 0.5
-    lasts = frames[:, n - 1:]
-    return flicked, lasts, t_frames, t_offs
+        # Photometric flicker on the model's INPUT frames only: motion
+        # estimation must be exposure-robust; the frame being warped and
+        # the targets stay clean (a stabilizer doesn't correct exposure).
+        flicked = frames * gains[..., None, None, None] - 0.5
+        lasts = frames[:, n - 1:]
+        return flicked, lasts, t_frames, t_offs
 
 
 def loss_from_batch(model: motion_cnn.MotionEstimator, batch,

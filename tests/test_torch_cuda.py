@@ -755,3 +755,34 @@ def test_profiler_traces_the_kernel_on_the_card(dev, tmp_path):
     assert b1 == [3]
     busy = profiling.device_busy_stats(str(tmp_path))
     assert 0.0 <= busy["idle_pct"] < 100.0 and busy["busy_ms"] > 0
+
+
+def test_spans_stay_host_ops_on_the_card(dev):
+    """A profiled train step on the card: its ``draw`` and ``render``
+    spans are host ops, none is copied onto the device lane, and B2's
+    render kernel is launched inside ``render``."""
+    from torch.profiler import ProfilerActivity, profile
+    from dvsg_tpu_torch.config import TrainConfig
+    from dvsg_tpu_torch.parallel import dryrun
+    from dvsg_tpu_torch.train import loop
+    mcfg, params = dryrun.tiny_setup()
+    cfg = TrainConfig(model=mcfg, batch_size=2, steps=4, warmup_steps=1)
+    state = loop.build_state(cfg, params, device=dev)
+    loop.train_step(state, loop.step_generator(0, 0), cfg)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loop.train_step(state, loop.step_generator(0, 1), cfg)
+        torch.cuda.synchronize(dev)
+    events = list(prof.profiler.kineto_results.events())
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [e for e in events if e.name().startswith("dvsg.")]
+    assert sorted(e.name() for e in spans) == ["dvsg.draw", "dvsg.render"]
+    assert all(e.device_type() != cuda and not e.is_user_annotation()
+               for e in spans)
+    render = next(e for e in spans if e.name() == "dvsg.render")
+    host = {e.correlation_id(): e for e in events if e.device_type() != cuda}
+    launched = [host.get(e.linked_correlation_id()) for e in events
+                if e.device_type() == cuda and "warp_f32" in e.name()]
+    assert any(op is not None and render.start_ns() <= op.start_ns()
+               <= render.start_ns() + render.duration_ns()
+               for op in launched)

@@ -90,6 +90,26 @@ def test_overlapped_equals_sync(params, frames, depth, path_smooth):
         <= set(timer.summary())
 
 
+@pytest.mark.parametrize("n_frames,chunks", [(14, 4), (12, 3)])
+def test_worker_threads_time_decode_and_encode(params, frames, n_frames,
+                                               chunks):
+    """The worker threads' stages: ``encode`` once a chunk, ``decode``
+    once a ``read_batch``, as the sync stream's ``decode`` counts (a clip
+    that fills its last chunk is read once more to find its end)."""
+    stab = Stabilizer(CFG, params, device="cpu")
+    sync, timer = StageTimer(), StageTimer()
+    stab.stabilize_stream(_Reader(frames[:n_frames]), _Writer(), timer=sync)
+    w = _Writer()
+    assert stabilize_stream_overlapped(stab, _Reader(frames[:n_frames]), w,
+                                       timer=timer) == n_frames
+    got = timer.summary()
+    assert got["encode"]["count"] == len(w.chunks) == chunks
+    assert got["decode"]["count"] == sync.summary()["decode"]["count"] \
+        == chunks + (n_frames % CFG.chunk_frames == 0)
+    assert got["dispatch"]["count"] == chunks
+    assert got["decode"]["total_s"] > 0 and got["encode"]["total_s"] > 0
+
+
 def test_overlapped_refuses_lag(params, frames):
     stab = Stabilizer(CFG.replace(path_smooth=8, path_smooth_lag=4), params,
                       device="cpu")

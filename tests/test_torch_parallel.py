@@ -249,6 +249,16 @@ def test_dp_step_matches_one_process(sharded, train_setup, monkeypatch):
                                            err_msg=f"{k}, rank {r}, {n}")
 
 
+def test_dp_step_draws_and_renders_once(sharded):
+    """One profiled DP step over 2 and 4 ranks: one ``draw`` span (every
+    rank draws the whole batch) and one ``render`` span on each rank."""
+    for r, res in enumerate(sharded):
+        for n in ("2", "4"):
+            if f"{n}/dp" in res:
+                assert res[f"{n}/dp_spans"] == {"dvsg.draw": 1,
+                                                "dvsg.render": 1}, (r, n)
+
+
 def test_dp_step_matches_reference_dp_step(sharded, train_setup):
     """The first step against the JAX package's make_dp_train_step on the
     8-device mesh, as tests/test_parallel.py holds its own."""

@@ -67,6 +67,7 @@ def sharded_cases(rank, p):
                   for d in p["draws"]]
         res[f"{name}/dp"] = (losses, {k: v.numpy().copy()
                                       for k, v in state.params.items()})
+        res[f"{name}/dp_spans"] = _dp_step_spans(tcfg, p["tparams"], m)
     world = meshes[max(meshes, key=int)]
     res["uneven"] = _refusal(lambda: dp.ShardedClipStabilizer(
         p["cfg"], p["params"], world).stabilize_clips(
@@ -75,6 +76,21 @@ def sharded_cases(rank, p):
         TrainConfig(model=p["tcfg"].model, batch_size=world.size + 2),
         world))
     return res
+
+
+def _dp_step_spans(tcfg, tparams, m) -> dict:
+    """The program's spans in a profile of one DP step, drawn by
+    ``shard_batch`` as a training run draws it: {name: count}."""
+    from torch.profiler import ProfilerActivity, profile
+    state = dp.replicate_state(loop.build_state(tcfg, tparams, "cpu"), m)
+    step_fn, shard_batch = dp.make_dp_train_step(tcfg, m)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step_fn(state, shard_batch(loop.step_generator(0, 0)))
+    counts: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("dvsg."):
+            counts[e.name()] = counts.get(e.name(), 0) + 1
+    return counts
 
 
 def temporal_cases(rank, p):
