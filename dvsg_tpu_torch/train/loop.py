@@ -115,11 +115,11 @@ def _draw_stills(generator: torch.Generator, cfg: TrainConfig, bank,
     if bank is None:
         return synthetic.random_still(generator, mh, mw, batch=(b,),
                                       device=device)
-    gdev = generator.device
-    idx = torch.randint(0, bank.shape[0], (b,), generator=generator,
-                        device=gdev).to(bank.device)
-    flips = (torch.rand((b, 2), generator=generator, device=gdev) < 0.5
-             ).to(bank.device)
+    draw = synthetic.draw_options(generator, bank.device)
+    idx = torch.randint(0, bank.shape[0], (b,), **draw).to(
+        bank.device, non_blocking=True)
+    flips = torch.rand((b, 2), **draw).to(bank.device,
+                                          non_blocking=True) < 0.5
     img = bank[idx]
     img = torch.where(flips[:, 0, None, None, None], img.flip(2), img)
     img = torch.where(flips[:, 1, None, None, None], img.flip(1), img)
@@ -129,18 +129,23 @@ def _draw_stills(generator: torch.Generator, cfg: TrainConfig, bank,
 def draw_batch(generator: torch.Generator, cfg: TrainConfig, bank=None,
                device="cpu"):
     """The random half of a batch: (stills (B, mh, mw, C), camera paths
-    (B, clip_len, 5), flicker gains (B, clip_len)) on ``device``. Traced
-    as the span ``draw``."""
+    (B, clip_len, 5), flicker gains (B, clip_len)) on ``device``. The
+    generator is drawn in a fixed order (the stills' draws, the path's,
+    the gains'); on a card, each draw is uploaded from pinned memory
+    without a host sync (synthetic.draw_options). Traced as the span
+    ``draw``."""
     with span("draw"):
         clip_len = cfg.model.window + _STEPS_PER_CLIP - 1
         b = cfg.batch_size
         stills = _draw_stills(generator, cfg, bank, device)
         paths = synthetic.random_camera_path(generator, clip_len,
                                              batch=(b,), device=device)
-        gains = 1.0 + 0.03 * (2.0 * torch.rand(
-            (b, clip_len), generator=generator,
-            device=generator.device) - 1.0)
-        return stills, paths, gains.to(device)
+        # 1 + 0.03 * (2u - 1), in place so that it stays in the draw's
+        # memory.
+        gains = torch.rand((b, clip_len),
+                           **synthetic.draw_options(generator, device))
+        gains.mul_(2.0).sub_(1.0).mul_(0.03).add_(1.0)
+        return stills, paths, gains.to(device, non_blocking=True)
 
 
 @torch.no_grad()

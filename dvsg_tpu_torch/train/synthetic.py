@@ -11,8 +11,11 @@ model can in principle drive pixel loss to zero.
 
 Every function that draws takes an explicit ``torch.Generator`` and draws
 on the generator's device (a CPU generator gives the same clip whatever
-the device the result is moved to). The deterministic functions take
-tensors with any leading batch axes.
+the device the result is moved to). A CPU generator's draws bound for a
+card are made in pinned memory (``draw_options``) and uploaded with
+``non_blocking=True``: the upload is queued on the current stream and
+waits neither for the card nor makes the host wait for it.
+The deterministic functions take tensors with any leading batch axes.
 """
 
 from __future__ import annotations
@@ -31,6 +34,17 @@ STILL_OCTAVES = ((4, 0.5), (8, 0.25), (16, 0.15), (64, 0.10))
 _PATH_LEAD = 8
 # Frames rendered per warp call (bounds the replicated still's memory).
 _RENDER_CHUNK = 16
+
+
+def draw_options(generator: torch.Generator, device) -> dict:
+    """Factory arguments of a draw from ``generator`` bound for ``device``:
+    on the generator's device, and in pinned memory where a CPU
+    generator's draw goes to a card (the caching host allocator keeps the
+    block until its upload is done)."""
+    pin = (generator.device.type == "cpu"
+           and torch.device(device).type == "cuda")
+    return {"generator": generator, "device": generator.device,
+            "pin_memory": pin}
 
 
 def still_from_octaves(coarses, height: int, width: int) -> torch.Tensor:
@@ -54,10 +68,21 @@ def random_still(generator: torch.Generator, height: int, width: int,
     structure (like real video), plus a fine octave for texture.
     """
     device = generator.device if device is None else device
-    coarses = [torch.rand((*batch, res, res, channels), generator=generator,
-                          device=generator.device).to(device)
-               for res, _ in STILL_OCTAVES]
+    draw = draw_options(generator, device)
+    coarses = [torch.rand((*batch, res, res, channels), **draw).to(
+        device, non_blocking=True) for res, _ in STILL_OCTAVES]
     return still_from_octaves(coarses, height, width)
+
+
+@resize_ops.tensor_cache(maxsize=16)
+def _path_scale(max_trans: float, max_angle: float, max_persp: float,
+                dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The path's per-component bounds on ``device``, uploaded once: a
+    list's upload waits for the card."""
+    # Cached past its first caller, which may run under inference_mode.
+    with torch.inference_mode(False):
+        return torch.tensor([max_trans, max_trans, max_angle, max_persp,
+                             max_persp], dtype=dtype, device=device)
 
 
 def camera_path_from_draws(steps: torch.Tensor, mag: torch.Tensor,
@@ -74,8 +99,8 @@ def camera_path_from_draws(steps: torch.Tensor, mag: torch.Tensor,
         / float(_PATH_LEAD + 1)
     smooth = smooth - smooth.mean(dim=-2, keepdim=True)
     denom = torch.clamp(smooth.abs().amax(dim=-2, keepdim=True), min=1e-6)
-    scale = torch.tensor([max_trans, max_trans, max_angle, max_persp,
-                          max_persp], dtype=steps.dtype, device=steps.device)
+    scale = _path_scale(max_trans, max_angle, max_persp, steps.dtype,
+                        steps.device)
     return smooth / denom * scale * mag[..., None, :]
 
 
@@ -92,11 +117,12 @@ def random_camera_path(generator: torch.Generator, num_frames: int,
     handheld-shake regime the stabilizer is meant to remove.
     """
     device = generator.device if device is None else device
-    steps = torch.randn((*batch, num_frames + _PATH_LEAD, 5),
-                        generator=generator, device=generator.device)
-    mag = 0.3 + 0.7 * torch.rand((*batch, 5), generator=generator,
-                                 device=generator.device)
-    return camera_path_from_draws(steps.to(device), mag.to(device),
+    draw = draw_options(generator, device)
+    steps = torch.randn((*batch, num_frames + _PATH_LEAD, 5), **draw)
+    # 0.3 + 0.7 * u, in place so that it stays in the draw's memory.
+    mag = torch.rand((*batch, 5), **draw).mul_(0.7).add_(0.3)
+    return camera_path_from_draws(steps.to(device, non_blocking=True),
+                                  mag.to(device, non_blocking=True),
                                   max_trans, max_angle, max_persp)
 
 

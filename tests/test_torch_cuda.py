@@ -786,3 +786,98 @@ def test_spans_stay_host_ops_on_the_card(dev):
     assert any(op is not None and render.start_ns() <= op.start_ns()
                <= render.start_ns() + render.duration_ns()
                for op in launched)
+
+
+# --- the training step's draws on the card -----------------------------------
+
+def _tiny_train(dev, with_bank):
+    """(TrainConfig, bank on the card or None) of a tiny training run."""
+    from dvsg_tpu_torch.config import TrainConfig
+    from dvsg_tpu_torch.parallel import dryrun
+    mcfg, _ = dryrun.tiny_setup()
+    cfg = TrainConfig(model=mcfg, batch_size=4, steps=8, warmup_steps=1)
+    bank = (torch.rand((5, *mcfg.model_size, 3),
+                       generator=torch.Generator().manual_seed(5)).to(dev)
+            if with_bank else None)
+    return cfg, bank
+
+
+def _blocking_draws(generator, cfg, bank, dev):
+    """The step's draws made one by one from ``generator`` and moved to
+    the card by blocking copies from pageable memory, then built on the
+    card (draw_batch's outputs as a plain sequence of calls)."""
+    from dvsg_tpu_torch.train import synthetic
+    b, clip_len = cfg.batch_size, cfg.model.window + 1
+    if bank is None:
+        stills = synthetic.still_from_octaves(
+            [torch.rand((b, res, res, 3), generator=generator).to(dev)
+             for res, _ in synthetic.STILL_OCTAVES], *cfg.model.model_size)
+    else:
+        idx = torch.randint(0, len(bank), (b,), generator=generator)
+        flips = (torch.rand((b, 2), generator=generator) < 0.5).to(dev)
+        stills = bank[idx.to(dev)]
+        stills = torch.where(flips[:, 0, None, None, None],
+                             stills.flip(2), stills)
+        stills = torch.where(flips[:, 1, None, None, None],
+                             stills.flip(1), stills)
+    steps = torch.randn((b, clip_len + 8, 5), generator=generator)
+    mag = 0.3 + 0.7 * torch.rand((b, 5), generator=generator)
+    paths = synthetic.camera_path_from_draws(steps.to(dev), mag.to(dev))
+    gains = 1.0 + 0.03 * (2.0 * torch.rand((b, clip_len),
+                                           generator=generator) - 1.0)
+    return stills, paths, gains.to(dev)
+
+
+@pytest.mark.parametrize("with_bank", [False, True])
+def test_warm_train_step_makes_no_host_sync(dev, with_bank):
+    """After one warm-up step (which uploads the cached resize matrices
+    and path bounds), train_step runs under sync debug mode "error": no
+    call in the step waits for the card."""
+    from dvsg_tpu_torch.parallel import dryrun
+    from dvsg_tpu_torch.train import loop
+    cfg, bank = _tiny_train(dev, with_bank)
+    state = loop.build_state(cfg, dryrun.tiny_setup()[1], device=dev)
+    loop.train_step(state, loop.step_generator(0, 0), cfg, bank)
+    torch.cuda.synchronize(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for step in range(1, 2 if with_bank else 3):
+            loop.train_step(state, loop.step_generator(0, step), cfg, bank)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(dev)
+
+
+@pytest.mark.parametrize("with_bank", [False, True])
+def test_draws_on_the_card_equal_the_blocking_path(dev, with_bank,
+                                                   monkeypatch):
+    """draw_batch's stills, paths and gains on the card equal the blocking
+    path's bit for bit, for several (seed, step); and three train steps'
+    losses equal those of a twin state that draws through the blocking
+    path."""
+    from dvsg_tpu_torch.parallel import dryrun
+    from dvsg_tpu_torch.train import loop
+    cfg, bank = _tiny_train(dev, with_bank)
+    for seed, step in ((0, 0), (7, 3), (4170000041, 12)):
+        got = loop.draw_batch(loop.step_generator(seed, step), cfg, bank,
+                              dev)
+        want = _blocking_draws(loop.step_generator(seed, step), cfg, bank,
+                               dev)
+        for name, g, w in zip(("stills", "paths", "gains"), got, want):
+            assert g.device == w.device and torch.equal(g, w), (
+                name, seed, step)
+
+    params = dryrun.tiny_setup()[1]
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    losses = {}
+    for path in ("pinned", "blocking"):
+        if path == "blocking":
+            monkeypatch.setattr(
+                loop, "draw_batch",
+                lambda gen, c, bk, d: _blocking_draws(gen, c, bk, d))
+        state = loop.build_state(cfg, params, device=dev)
+        losses[path] = [float(loop.train_step(
+            state, loop.step_generator(3, k), cfg, bank)["total"])
+            for k in range(3)]
+    assert losses["pinned"] == losses["blocking"]

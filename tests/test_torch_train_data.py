@@ -9,7 +9,7 @@ import torch
 from dvsg_tpu.train import data as jdata
 from dvsg_tpu_torch import cli
 from dvsg_tpu_torch.config import ModelConfig, TrainConfig
-from dvsg_tpu_torch.train import loop
+from dvsg_tpu_torch.train import loop, synthetic
 from dvsg_tpu_torch.train.data import (_crop_resize, build_image_bank,
                                        build_image_bank_multi,
                                        iter_sampled_frames)
@@ -142,6 +142,43 @@ def test_train_step_with_bank():
         aux = loop.train_step(state, _gen(i), TCFG, bank)
     assert np.isfinite(float(aux["total"]))
     assert state.step == 3
+
+
+@pytest.mark.parametrize("with_bank", [False, True])
+def test_draw_batch_draws_the_generator_in_order(with_bank):
+    """draw_batch on the CPU returns the draws a twin generator gives
+    drawn one by one in the order the step takes them (the stills' octaves,
+    or the bank's index and flips; the path's steps and magnitudes; the
+    gains), built as the plain expressions build them, and leaves the
+    generator where the twin is."""
+    rng = np.random.default_rng(4)
+    bank = (torch.from_numpy(rng.random((5, 32, 32, 3), dtype=np.float32))
+            if with_bank else None)
+    gen, twin = _gen(11), _gen(11)
+    got = loop.draw_batch(gen, TCFG, bank, "cpu")
+
+    b, clip_len = TCFG.batch_size, MCFG.window + 1
+    if bank is None:
+        stills = synthetic.still_from_octaves(
+            [torch.rand((b, res, res, 3), generator=twin)
+             for res, _ in synthetic.STILL_OCTAVES], *MCFG.model_size)
+    else:
+        idx = torch.randint(0, len(bank), (b,), generator=twin)
+        flips = torch.rand((b, 2), generator=twin) < 0.5
+        stills = bank[idx]
+        stills = torch.where(flips[:, 0, None, None, None],
+                             stills.flip(2), stills)
+        stills = torch.where(flips[:, 1, None, None, None],
+                             stills.flip(1), stills)
+    steps = torch.randn((b, clip_len + 8, 5), generator=twin)
+    mag = 0.3 + 0.7 * torch.rand((b, 5), generator=twin)
+    paths = synthetic.camera_path_from_draws(steps, mag)
+    gains = 1.0 + 0.03 * (2.0 * torch.rand((b, clip_len),
+                                           generator=twin) - 1.0)
+    for name, g, w in zip(("stills", "paths", "gains"), got,
+                          (stills, paths, gains)):
+        assert torch.equal(g, w), name
+    assert torch.equal(gen.get_state(), twin.get_state())
 
 
 def test_train_entry_accepts_bank():
