@@ -42,6 +42,11 @@ cast of a bf16 value to f32 rounds its own share of the gradient; the
 correlation's gradient sums its shifts one by one in bf16 (autograd
 functions whose forward is the plain computation).
 
+Under a profiler the bf16 rounding passes (GELU, the bias add, the casts
+to f32 and GroupNorm's normalize, forward and backward) run inside the
+span ``bf16_round`` and the correlation's gradient inside ``corr_bwd``
+(``utils/metrics.py::span``).
+
 Public functions keep the reference's NHWC layouts.
 """
 
@@ -55,6 +60,7 @@ import torch.nn.functional as F
 
 from dvsg_tpu_torch.config import ModelConfig
 from dvsg_tpu_torch.ops import grid as grid_ops
+from dvsg_tpu_torch.utils.metrics import span
 
 GN_GROUPS = 8
 GN_EPS = 1e-6
@@ -89,17 +95,19 @@ class _GeluBf16(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, f32_out):
         ctx.save_for_backward(x)
-        h = _gelu_gate_bf16(x)[2]
-        return x.float() * h.float() if f32_out else x * h
+        with span("bf16_round"):
+            h = _gelu_gate_bf16(x)[2]
+            return x.float() * h.float() if f32_out else x * h
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        g = g.to(x.dtype)
-        x2, t, h = _gelu_gate_bf16(x)
-        q = ((x * g) * 0.5) * (1.0 - t)
-        ga = (q + q * t) * _GELU_SQRT_2_PI      # through tanh, then sqrt(2/pi)
-        return (g * h + ga) + (ga * _GELU_CUBE) * (x2 * 3.0), None
+        with span("bf16_round"):
+            g = g.to(x.dtype)
+            x2, t, h = _gelu_gate_bf16(x)
+            q = ((x * g) * 0.5) * (1.0 - t)
+            ga = (q + q * t) * _GELU_SQRT_2_PI  # through tanh, sqrt(2/pi)
+            return (g * h + ga) + (ga * _GELU_CUBE) * (x2 * 3.0), None
 
 
 def gelu(x: torch.Tensor, f32_out: bool = False) -> torch.Tensor:
@@ -133,11 +141,13 @@ class _CastToF32(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y, rounded):
-        return y.to(torch.bfloat16).float() if rounded else y.view_as(y)
+        with span("bf16_round"):
+            return y.to(torch.bfloat16).float() if rounded else y.view_as(y)
 
     @staticmethod
     def backward(ctx, g):
-        return g.to(torch.bfloat16).float(), None
+        with span("bf16_round"):
+            return g.to(torch.bfloat16).float(), None
 
 
 def _bias_grad_bf16(g: torch.Tensor) -> torch.Tensor:
@@ -164,13 +174,15 @@ class _BiasAddBf16(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y, bias, f32_out):
-        b = bias.to(y.dtype)[:, None, None]
-        return y.float() + b.float() if f32_out else y + b
+        with span("bf16_round"):
+            b = bias.to(y.dtype)[:, None, None]
+            return y.float() + b.float() if f32_out else y + b
 
     @staticmethod
     def backward(ctx, g):
-        g = g.to(torch.bfloat16)
-        return g, _bias_grad_bf16(g), None
+        with span("bf16_round"):
+            g = g.to(torch.bfloat16)
+            return g, _bias_grad_bf16(g), None
 
 
 class SameConv2d(nn.Conv2d):
@@ -224,19 +236,20 @@ def conv_norm(conv: SameConv2d, norm: nn.GroupNorm, x: torch.Tensor
     if x.dtype != torch.bfloat16:
         return norm(conv(x))
     y = _BiasAddBf16.apply(conv.unbiased_bf16(x), conv.bias, True)
-    b, c = y.shape[:2]
-    grp = norm.num_groups
-    g = _CastToF32.apply(y, True).reshape(b, grp, -1)
-    mean = g.mean(dim=-1, keepdim=True)
-    var = torch.clamp((g * g).mean(dim=-1, keepdim=True) - mean * mean,
-                      min=0.0)
-    y = _CastToF32.apply(y, False).reshape(b, grp, c // grp,
-                                             *y.shape[2:])
-    y = y - mean.reshape(b, grp, 1, 1, 1)
-    y = y * (torch.rsqrt(var + norm.eps).reshape(b, grp, 1, 1, 1)
-             * norm.weight.reshape(grp, c // grp, 1, 1))
-    y = y.reshape(b, c, *y.shape[3:]) + norm.bias.reshape(c, 1, 1)
-    return y.to(x.dtype)
+    with span("bf16_round"):
+        b, c = y.shape[:2]
+        grp = norm.num_groups
+        g = _CastToF32.apply(y, True).reshape(b, grp, -1)
+        mean = g.mean(dim=-1, keepdim=True)
+        var = torch.clamp((g * g).mean(dim=-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        y = _CastToF32.apply(y, False).reshape(b, grp, c // grp,
+                                                 *y.shape[2:])
+        y = y - mean.reshape(b, grp, 1, 1, 1)
+        y = y * (torch.rsqrt(var + norm.eps).reshape(b, grp, 1, 1, 1)
+                 * norm.weight.reshape(grp, c // grp, 1, 1))
+        y = y.reshape(b, c, *y.shape[3:]) + norm.bias.reshape(c, 1, 1)
+        return y.to(x.dtype)
 
 
 class ResBlock(nn.Module):
@@ -362,18 +375,20 @@ class _CorrInputBf16(torch.autograd.Function):
         r = ctx.radius
         b, k, f, gh, gw = others.shape
         n = (2 * r + 1) ** 2
-        g = g.to(ref.dtype)
-        gv = g[:, :k * n].reshape(b, k, n, gh, gw) * _bf16(float(f) ** -0.5)
-        pad = F.pad(others, (r, r, r, r))
-        d_ref = g[:, k * n:].clone()
-        d_pad = torch.zeros_like(pad)
-        for kk in reversed(range(k)):
-            for sh in reversed(range(n)):
-                dy, dx = divmod(sh, 2 * r + 1)
-                c = gv[:, kk, sh, None]
-                d_ref = d_ref + c * pad[:, kk, :, dy:dy + gh, dx:dx + gw]
-                d_pad[:, kk, :, dy:dy + gh, dx:dx + gw] += c * ref
-        return d_ref, d_pad[..., r:r + gh, r:r + gw], None
+        with span("corr_bwd"):
+            g = g.to(ref.dtype)
+            gv = g[:, :k * n].reshape(b, k, n, gh, gw) * _bf16(
+                float(f) ** -0.5)
+            pad = F.pad(others, (r, r, r, r))
+            d_ref = g[:, k * n:].clone()
+            d_pad = torch.zeros_like(pad)
+            for kk in reversed(range(k)):
+                for sh in reversed(range(n)):
+                    dy, dx = divmod(sh, 2 * r + 1)
+                    c = gv[:, kk, sh, None]
+                    d_ref = d_ref + c * pad[:, kk, :, dy:dy + gh, dx:dx + gw]
+                    d_pad[:, kk, :, dy:dy + gh, dx:dx + gw] += c * ref
+            return d_ref, d_pad[..., r:r + gh, r:r + gw], None
 
 
 class MotionEstimator(nn.Module):
