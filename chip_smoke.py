@@ -17,6 +17,7 @@ on failure:
    general-shape one also on the packed kernel's), the f32 warps within
    1e-5, the grid gradient within 1e-4 of the largest gradient; both
    dense-grid uint8 kernels on the packed kernel's shapes, byte-equal;
+   the bf16 GELU kernels byte-equal to the op chain on every bf16 value;
 3. the stabilize path, ``Stabilizer.stabilize_clip`` with T = 16 on a
    seeded 48-frame 1280x720 shaky clip, for both shipped presets at full
    width and depth: output shape and dtype, one launch of the packed
@@ -59,7 +60,10 @@ on failure:
    queued behind a long kernel. The two offsets kernels, the two
    dense-grid uint8 kernels and the stage variants of each pair (each
    strips one part of a kernel) are timed in turns, beside their SASS
-   lengths;
+   lengths; the bf16 GELU kernels at the quality stem's training shape,
+   byte-equal to the op chain there (both outputs, bf16, f32 and
+   channels-last cotangents), timed beside the op chain and ``F.gelu``'s
+   tanh form (yardstick only);
 8. batch and serve, both presets, 1280x720: four seeded clips of 48, 40,
    33 and 17 frames from four threads at once through ``BatchStabilizer``
    (plain, causal, lag; one group), and through ``stabilize_multi``
@@ -107,8 +111,9 @@ on failure:
    step's time), then stabilize (chunk ms back to back and queued) with
    one launch a chunk, within 1 LSB of the CPU path, and an exported
    stacked artifact byte-equal to the live path; (d) bf16 training at both
-   presets' widths, batch 8: steps/s, finite losses, the kernel step
-   against the plain step; (e) ``stabilize --profile-dir``'s trace and
+   presets' widths, batch 8: steps/s, finite losses, each GELU kernel
+   launched once a GELU call of every step, the kernel step against the
+   plain step (plain warps and plain GELU chain); (e) ``stabilize --profile-dir``'s trace and
    ``[profile]`` lines around the ``fast`` sync and overlapped streams of
    the 720p clip: B1's packed kernel once a chunk in the trace, the top
    eight ops, each stream's device idle share (a 96-frame clip);
@@ -196,7 +201,7 @@ import torch.nn.functional as F
 
 from dvsg_tpu_torch.config import StabilizeConfig, TrainConfig
 from dvsg_tpu_torch.models import motion_cnn
-from dvsg_tpu_torch.ops import _build
+from dvsg_tpu_torch.ops import _build, bf16_round
 from dvsg_tpu_torch.ops import grid as grid_ops
 from dvsg_tpu_torch.ops import resize as resize_ops
 from dvsg_tpu_torch.ops import warp as warp_ops
@@ -217,7 +222,8 @@ from dvsg_tpu_torch.utils.metrics import StageTimer, psnr
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PRESETS = (("fast", "flagship_fast.npz"), ("quality", "flagship.npz"))
-SOURCES = ("warp_u8_offsets", "warp_bilinear", "warp_u8_batch")  # csrc/
+SOURCES = ("warp_u8_offsets", "warp_bilinear", "warp_u8_batch",
+           "bf16_round")                                   # csrc/
 # Training runs: (preset, steps from a seeded init); batch 8, window 5.
 TRAIN_RUNS = (("fast", 60), ("quality", 30))
 TRAIN_BATCH = 8
@@ -279,7 +285,7 @@ def build_report() -> list:
                 frame = line.strip()
             elif "Used" in line and entry:
                 # <digit>kernel_name[ILi<stage>E] inside the mangled name
-                short = re.search(r"\d(warp_[a-z0-9_]*?_kernel)"
+                short = re.search(r"\d((?:warp|gelu)_[a-z0-9_]*?_kernel)"
                                   r"(?:ILi(\d+)E)?", entry)
                 kernel = entry if not short else short[1] + (
                     f"<{short[2]}>" if short[2] else "")
@@ -637,6 +643,41 @@ def phase_kernel_checks(rng, dev) -> int:
                                      f"{maxd} LSB at {shape}, crop {crop}")
             worst = max(worst, maxd)
     return worst
+
+
+def phase_gelu_checks(rng, dev) -> int:
+    """Both bf16 GELU kernels against the plain op chain on the card, byte
+    for byte: every bf16 value (forward with bf16 and f32 output, backward
+    with a bf16 and an f32 cotangent), and the vector loop's ragged end and
+    a view off the 16-byte boundary. Returns the values that differ (0)."""
+    every = torch.arange(-32768, 32768, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16).to(dev)
+    ragged = (torch.from_numpy(rng.normal(0, 2.0, (1 << 20) + 5).astype(
+        np.float32)).to(dev).bfloat16())
+    differ = 0
+    for name, x in (("every bf16 value", every), ("2^20 + 5", ragged),
+                    ("view off 16 bytes", ragged[1:])):
+        g = torch.from_numpy(rng.normal(0, 1.0, x.numel()).astype(
+            np.float32)).to(dev)
+        pairs = {
+            "fwd": (bf16_round.gelu_bf16(x, False),
+                    bf16_round.gelu_plain(x, False)),
+            "fwd f32_out": (bf16_round.gelu_bf16(x, True),
+                            bf16_round.gelu_plain(x, True)),
+            "bwd": (bf16_round.gelu_bf16_bwd(x, g.bfloat16()),
+                    bf16_round.gelu_grad_plain(x, g.bfloat16())),
+            "bwd f32 g": (bf16_round.gelu_bf16_bwd(x, g),
+                          bf16_round.gelu_grad_plain(x, g)),
+        }
+        for kind, (got, want) in pairs.items():
+            n = gelu_values_differ(got, want)
+            log(f"  gelu_bf16 {kind}, {name} ({x.numel()}): {n} values "
+                f"differ from the op chain")
+            differ += n
+    if differ:
+        raise AssertionError(f"the bf16 GELU kernels differ from the op "
+                             f"chain on {differ} values")
+    return differ
 
 
 def phase_main_path(seed: int, dev):
@@ -1276,18 +1317,35 @@ def train_launches() -> dict:
             "warp_f32_diff_bwd": warp_bilinear.LAUNCHES_DIFF_BWD}
 
 
+def gelu_launches() -> dict:
+    return {"gelu_bf16_fwd": bf16_round.LAUNCHES_GELU_FWD,
+            "gelu_bf16_bwd": bf16_round.LAUNCHES_GELU_BWD}
+
+
+def gelu_calls(mcfg) -> int:
+    """The bf16 GELU calls of one pass of the corr model's encoder: the
+    stem's, then each level's down conv's and two a ResBlock."""
+    return 1 + motion_cnn.pyramid_levels(mcfg) * (
+        1 + 2 * mcfg.blocks_per_level)
+
+
 @contextlib.contextmanager
 def plain_warps():
-    """Route the training path's two warps to their plain versions (on
-    whatever device), to hold the kernels' step against."""
-    saved = warp_ops.warp_batch, warp_ops.warp_batch_diff
+    """Route the training path's two warps and the bf16 GELU's two kernels
+    to their plain versions (on whatever device), to hold the kernels'
+    step against."""
+    saved = (warp_ops.warp_batch, warp_ops.warp_batch_diff,
+             bf16_round._launch_fwd, bf16_round._launch_bwd)
     warp_ops.warp_batch = warp_bilinear.bilinear_warp_batch_plain
     warp_ops.warp_batch_diff = \
         warp_bilinear.bilinear_warp_batch_grids_diff_plain
+    bf16_round._launch_fwd = bf16_round.gelu_plain
+    bf16_round._launch_bwd = bf16_round.gelu_grad_plain
     try:
         yield
     finally:
-        warp_ops.warp_batch, warp_ops.warp_batch_diff = saved
+        (warp_ops.warp_batch, warp_ops.warp_batch_diff,
+         bf16_round._launch_fwd, bf16_round._launch_bwd) = saved
 
 
 def loss_and_grads(state, cfg, step: int):
@@ -1306,16 +1364,21 @@ def loss_and_grads(state, cfg, step: int):
 def kernels_vs_plain_step(state, cfg, step: int, loss_tol: float = 1e-4,
                           grad_tol: float = 1e-3) -> dict:
     """One step's loss and parameter gradients through the kernels against
-    the same step through the plain versions, both on the card."""
-    reset = train_launches()
+    the same step through the plain versions, both on the card. A bf16
+    step launches each GELU kernel once a GELU call, an f32 step never."""
+    def launches():
+        return {**train_launches(), **gelu_launches()}
+    reset = launches()
     aux_k, grads_k = loss_and_grads(state, cfg, step)
-    used = {k: v - reset[k] for k, v in train_launches().items()}
+    used = {k: v - reset[k] for k, v in launches().items()}
     with plain_warps():
-        before = train_launches()
+        before = launches()
         aux_p, grads_p = loss_and_grads(state, cfg, step)
-        if train_launches() != before:
+        if launches() != before:
             raise AssertionError("the plain step launched a kernel")
-    if min(used.values()) < 1:
+    n_gelu = gelu_calls(cfg.model) if cfg.model.dtype == "bfloat16" else 0
+    if (min(used[k] for k in train_launches()) < 1
+            or any(used[k] != n_gelu for k in gelu_launches())):
         raise AssertionError(f"the kernel step launched {used}")
     loss_rel = abs(aux_k["total"] - aux_p["total"]) / abs(aux_p["total"])
     grad_rel = max(
@@ -1353,6 +1416,18 @@ def expect_launches(name: str, steps: int) -> dict:
     log(f"  [{name}] kernel launches in {steps} steps: {got}")
     if any(v != steps for v in got.values()):
         raise AssertionError(f"[{name}] launches {got} for {steps} steps")
+    return got
+
+
+def expect_gelu_launches(name: str, mcfg, steps: int) -> dict:
+    """The bf16 GELU kernels' launches since their counters were set to 0:
+    one forward and one backward a GELU call of each train step."""
+    got, want = gelu_launches(), gelu_calls(mcfg) * steps
+    log(f"  [{name}] GELU kernel launches in {steps} steps: {got} "
+        f"(want {want} each)")
+    if any(v != want for v in got.values()):
+        raise AssertionError(f"[{name}] GELU launches {got} for {steps} "
+                             f"steps of {gelu_calls(mcfg)} calls")
     return got
 
 
@@ -1720,6 +1795,84 @@ def time_dense_kernels(rng, dev) -> dict:
             + (f"; warp_f32's kernel on the same inputs "
                f"{r['general_kernel_ms']:.4f} ms"
                if name == "warp_f32_diff_fwd" else ""))
+    return recs
+
+
+# The bf16 GELU's largest call on its path: the quality stem's output for
+# the training step's 192 frames (32 clips of 6), 32 x 256 x 256 each.
+GELU_SHAPE = (192, 32, 256, 256)
+
+
+def gelu_values_differ(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The values of ``got`` whose bytes differ from ``want``'s; raises
+    where the two differ in dtype, shape or layout."""
+    if (got.dtype, got.shape, got.stride()) != (want.dtype, want.shape,
+                                                want.stride()):
+        raise AssertionError(f"kernel output {got.dtype} {got.stride()}, "
+                             f"op chain's {want.dtype} {want.stride()}")
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return int((got.view(view) != want.view(view)).sum())
+
+
+def time_gelu_kernels(dev) -> dict:
+    """Both bf16 GELU kernels at ``GELU_SHAPE``, beside their bound (4 and
+    6 bytes an element), the plain op chain and one PyTorch call of the
+    same function (``F.gelu``'s tanh form, and its backward op), which
+    rounds once and is timed as a yardstick only. Before the times, each
+    kernel's bytes against the chain's at that shape: the forward with a
+    bf16 and an f32 output, the backward with a bf16 and an f32 cotangent
+    and with a channels-last one, as the training backward gives the
+    deepest level's GELUs. Raises on a value that differs."""
+    x = (torch.randn(GELU_SHAPE, device=dev) * 2.0).bfloat16()
+    g = torch.randn(GELU_SHAPE, device=dev).bfloat16()
+    n = x.numel()
+    recs = {}
+    for name, cases in (
+            ("gelu_bf16_fwd", (
+                ("bf16 out", lambda: bf16_round.gelu_bf16(x, False),
+                 lambda: bf16_round.gelu_plain(x, False)),
+                ("f32 out", lambda: bf16_round.gelu_bf16(x, True),
+                 lambda: bf16_round.gelu_plain(x, True)))),
+            ("gelu_bf16_bwd", (
+                ("bf16 g", lambda: bf16_round.gelu_bf16_bwd(x, g),
+                 lambda: bf16_round.gelu_grad_plain(x, g)),
+                ("f32 g", lambda: bf16_round.gelu_bf16_bwd(x, g.float()),
+                 lambda: bf16_round.gelu_grad_plain(x, g.float())),
+                ("channels-last g", lambda: bf16_round.gelu_bf16_bwd(
+                    x, g.contiguous(memory_format=torch.channels_last)),
+                 lambda: bf16_round.gelu_grad_plain(
+                     x, g.contiguous(memory_format=torch.channels_last)))))):
+        differ = 0
+        for case, kernel, plain in cases:
+            d = gelu_values_differ(kernel(), plain())
+            log(f"  {name} {list(GELU_SHAPE)}, {case}: {d} values differ "
+                f"from the op chain")
+            differ += d
+        if differ:
+            raise AssertionError(f"{name} differs from the op chain at "
+                                 f"{list(GELU_SHAPE)} on {differ} values")
+        recs[name] = {"values_differ": differ}
+    for name, n_bytes, kernel, plain, library in (
+            ("gelu_bf16_fwd", 4 * n,
+             lambda: bf16_round.gelu_bf16(x, False),
+             lambda: bf16_round.gelu_plain(x, False),
+             lambda: F.gelu(x, approximate="tanh")),
+            ("gelu_bf16_bwd", 6 * n,
+             lambda: bf16_round.gelu_bf16_bwd(x, g),
+             lambda: bf16_round.gelu_grad_plain(x, g),
+             lambda: torch.ops.aten.gelu_backward(g, x,
+                                                  approximate="tanh"))):
+        bound_ms, by = bound(n_bytes, 0)
+        recs[name].update({"ms": median_ms(kernel), "warm_l2_ms": median_ms(
+            kernel, cold=False), "plain_ms": median_ms(plain, iters=10),
+            "library_ms": median_ms(library), "bound_ms": bound_ms,
+            "bound_by": by, "shape": list(GELU_SHAPE)})
+        r = recs[name]
+        log(f"  {name} {r['shape']} bf16: {r['ms']:.4f} ms from a cold L2 "
+            f"({r['warm_l2_ms']:.4f} ms back to back) = "
+            f"{100 * bound_ms / r['ms']:.1f} % of the bound {bound_ms:.4f} "
+            f"ms ({by}); plain op chain {r['plain_ms']:.4f} ms; one PyTorch "
+            f"call (tanh GELU, one rounding) {r['library_ms']:.4f} ms")
     return recs
 
 
@@ -2504,7 +2657,8 @@ def phase_bf16_stacked(seed: int, dev, work_dir: str):
     """bf16 compute at both presets' full width, the 1080p bf16 soak, the
     stacked arch at the presets' widths (stabilize, train, export), bf16
     training and the profiler on the sync and overlapped streams. Returns
-    (offsets-kernel launches, training-kernel launches, results)."""
+    (offsets-kernel launches, training-kernel launches, results); the
+    results hold the GELU kernels' launches in the bf16 training runs."""
     from dvsg_tpu_torch import cli
     from dvsg_tpu_torch import export as export_lib
     from dvsg_tpu_torch.utils import profiling
@@ -2513,6 +2667,7 @@ def phase_bf16_stacked(seed: int, dev, work_dir: str):
     n_chunks = math.ceil(P10_FRAMES / T_CHUNK)
     launches = 0
     train_counts = {k: 0 for k in train_launches()}
+    gelu_counts = {k: 0 for k in gelu_launches()}
     results = {}
 
     def exported(name, cfg, params, want):
@@ -2616,8 +2771,9 @@ def phase_bf16_stacked(seed: int, dev, work_dir: str):
             for name, fn in [*turns, *turns[::-1]]:
                 times.setdefault(name, []).append(fn())
             # One chunk of each under the profiler: the elementwise
-            # kernels' share of its device time (bf16's GELU is eight such
-            # passes; f32's is one fused kernel).
+            # kernels' share of its device time (bf16's GELU is one kernel
+            # of csrc/bf16_round.cu, not counted here; f32's is one fused
+            # PyTorch kernel).
             shares = {}
             for tag, s in (("f32", stab32), ("bf16", stab)):
                 trace_dir = os.path.join(work_dir, f"chunk_{preset}_{tag}")
@@ -2777,11 +2933,15 @@ def phase_bf16_stacked(seed: int, dev, work_dir: str):
         state = train_loop.init_state(
             tcfg, torch.Generator().manual_seed(seed), device="cuda")
         reset_train_launches()
+        bf16_round.LAUNCHES_GELU_FWD = bf16_round.LAUNCHES_GELU_BWD = 0
         history, step_ms = timed_steps(state, tcfg, seed, 0,
                                        BF16_TRAIN_STEPS)
         for k, v in expect_launches(f"{preset} bf16 train",
                                     BF16_TRAIN_STEPS).items():
             train_counts[k] += v
+        for k, v in expect_gelu_launches(f"{preset} bf16 train", tcfg.model,
+                                         BF16_TRAIN_STEPS).items():
+            gelu_counts[k] += v
         check_history(f"{preset} bf16 train", history, BF16_TRAIN_STEPS,
                       falls=False)
         step_check = kernels_vs_plain_step(state, tcfg, BF16_TRAIN_STEPS,
@@ -2826,6 +2986,7 @@ def phase_bf16_stacked(seed: int, dev, work_dir: str):
             raise AssertionError(f"[{tag}] no device lane in the trace")
         results[f"profile_{tag}"] = {"top8": dict(list(summary.items())[:8]),
                                      "b1": b1, "busy": busy}
+    results["gelu_launches"] = gelu_counts
     return launches, train_counts, results
 
 
@@ -4065,6 +4226,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     max_lsb = phase_kernel_checks(rng, dev)
     worst = phase_dense_kernel_checks(rng, dev)
+    gelu_differ = phase_gelu_checks(rng, dev)
 
     log("== phase 3: stabilize path, both presets, 1280x720")
     launches, launches_dense, results, stabs, clip = phase_main_path(
@@ -4088,6 +4250,7 @@ def main(argv=None) -> int:
     log("== phase 7: times of the training path and of each kernel")
     phase_train_times(args.seed, train_results)
     dense = time_dense_kernels(rng, dev)
+    dense.update(time_gelu_kernels(dev))
 
     log("== phase 8: batch and serve, both presets, 1280x720")
     with tempfile.TemporaryDirectory() as work_dir:
@@ -4131,11 +4294,12 @@ def main(argv=None) -> int:
                                                          work_dir)
     launches += p13_launches
 
-    def entry(name, source, replaces, n_launches, err, rec):
+    def entry(name, source, replaces, n_launches, err, rec,
+              err_name="max_abs_err"):
         return {"name": name, "route": "cuda",
                 "source": f"dvsg_tpu_torch/csrc/{source}.cu",
                 "replaces": replaces, "launches": n_launches,
-                "max_abs_err": err, "ms": rec["ms"],
+                err_name: err, "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]}
@@ -4156,6 +4320,11 @@ def main(argv=None) -> int:
         entry("warp_u8_batch", "warp_u8_batch",
               "dvsg_tpu/ops/warp_wide.py:593", launches_dense,
               worst["warp_u8_batch"], dense["warp_u8_batch"]),
+        *(entry(name, "bf16_round", "none (XLA's fusion)",
+                p10_results["gelu_launches"][name],
+                gelu_differ + dense[name]["values_differ"], dense[name],
+                err_name="values_differ")
+          for name in ("gelu_bf16_fwd", "gelu_bf16_bwd")),
     ]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel was never launched on its path: "

@@ -28,7 +28,8 @@ rounds, which is not where PyTorch's fused bf16 ops round:
 
 * a conv rounds its result to bf16, then adds the bias in bf16;
 * GELU is the tanh formula op by op, each op rounded, its constants
-  rounded to bf16 first (a weakly typed constant takes the array's type);
+  rounded to bf16 first (a weakly typed constant takes the array's type;
+  ops/bf16_round.py: on the card one kernel does the whole chain);
 * GroupNorm takes its statistics and normalizes in f32, rounding once;
   it normalizes the conv's f32 sum with its bias, as XLA's fusion does;
 * a correlation's products and sum are f32, rounded once, then scaled;
@@ -59,6 +60,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from dvsg_tpu_torch.config import ModelConfig
+from dvsg_tpu_torch.ops import bf16_round
 from dvsg_tpu_torch.ops import grid as grid_ops
 from dvsg_tpu_torch.utils.metrics import span
 
@@ -68,46 +70,22 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _ARCHS = ("corr", "stacked")
 
 
-def _bf16(v: float) -> float:
-    """``v`` rounded to bf16: what a weakly typed constant becomes against
-    a bf16 array in the reference."""
-    return float(torch.tensor(v, dtype=torch.bfloat16))
-
-
-_GELU_CUBE = _bf16(0.044715)
-_GELU_SQRT_2_PI = _bf16(math.sqrt(2.0 / math.pi))
-
-
-def _gelu_gate_bf16(x: torch.Tensor) -> tuple:
-    """(x², tanh of the inner term, the gate 0.5 (1 + tanh)) of
-    jax.nn.gelu's formula in its order, each op rounded to bf16."""
-    x2 = x * x
-    t = torch.tanh(_GELU_SQRT_2_PI * (x + _GELU_CUBE * (x2 * x)))
-    return x2, t, 0.5 * (1.0 + t)
-
-
 class _GeluBf16(torch.autograd.Function):
-    """jax.nn.gelu on bf16 ``x`` and the gradient JAX derives for it (its
-    JVP transposed, each op rounded to bf16, in the order of XLA's fusion).
-    With ``f32_out`` the last product stays f32: where the reference casts
-    a GELU's bf16 result to f32, XLA drops that rounding."""
+    """jax.nn.gelu on bf16 ``x`` and the gradient JAX derives for it, as
+    the registered ops of ``ops/bf16_round.py``: one kernel each on the
+    card, the plain op chain on the CPU."""
 
     @staticmethod
     def forward(ctx, x, f32_out):
         ctx.save_for_backward(x)
         with span("bf16_round"):
-            h = _gelu_gate_bf16(x)[2]
-            return x.float() * h.float() if f32_out else x * h
+            return bf16_round.gelu_bf16(x, f32_out)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         with span("bf16_round"):
-            g = g.to(x.dtype)
-            x2, t, h = _gelu_gate_bf16(x)
-            q = ((x * g) * 0.5) * (1.0 - t)
-            ga = (q + q * t) * _GELU_SQRT_2_PI  # through tanh, sqrt(2/pi)
-            return (g * h + ga) + (ga * _GELU_CUBE) * (x2 * 3.0), None
+            return bf16_round.gelu_bf16_bwd(x, g), None
 
 
 def gelu(x: torch.Tensor, f32_out: bool = False) -> torch.Tensor:
@@ -350,7 +328,8 @@ def correlation_volume(ref: torch.Tensor, other: torch.Tensor,
     vols = [(ref * pad[..., dy:dy + gh, dx:dx + gw]).sum(dim=2)
             for dy in range(k) for dx in range(k)]
     if low:
-        return torch.stack(vols, dim=2).to(torch.bfloat16) * _bf16(scale)
+        return (torch.stack(vols, dim=2).to(torch.bfloat16)
+                * bf16_round.bf16(scale))
     return torch.stack(vols, dim=2) * scale
 
 
@@ -377,7 +356,7 @@ class _CorrInputBf16(torch.autograd.Function):
         n = (2 * r + 1) ** 2
         with span("corr_bwd"):
             g = g.to(ref.dtype)
-            gv = g[:, :k * n].reshape(b, k, n, gh, gw) * _bf16(
+            gv = g[:, :k * n].reshape(b, k, n, gh, gw) * bf16_round.bf16(
                 float(f) ** -0.5)
             pad = F.pad(others, (r, r, r, r))
             d_ref = g[:, k * n:].clone()

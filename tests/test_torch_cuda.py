@@ -736,6 +736,140 @@ def test_variant_train_step_on_the_card(dev, variant):
             warp_bilinear.LAUNCHES_DIFF_BWD) == tuple(b + 1 for b in before)
 
 
+def _gelu_inputs(dev) -> torch.Tensor:
+    """2**20 + 5 bf16 values from N(0, 2), then ±0, ±inf, NaN, bf16
+    subnormals and values large enough to saturate tanh or overflow x³."""
+    rng = np.random.default_rng(11)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 9.2e-41,
+                        -9.2e-41, 5e-39, -1.1e-38, 6.0, -6.0, 30.0, -30.0,
+                        1e4, -1e4, 3e38, -3e38], np.float32)
+    z = np.concatenate([rng.normal(0, 2.0, (1 << 20) + 5), special])
+    return torch.from_numpy(z.astype(np.float32)).to(dev).bfloat16()
+
+
+def _same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same dtype, shape, layout and bytes."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.stride() == b.stride()
+            and torch.equal(a.view(view), b.view(view)))
+
+
+@pytest.mark.parametrize("f32_out", [False, True])
+def test_gelu_bf16_forward_kernel_is_the_op_chain(dev, f32_out):
+    """The forward kernel gives the plain op chain's bytes on the card, one
+    launch a call: vectors and a ragged end, and a view off the 16-byte
+    boundary (the scalar loop)."""
+    from dvsg_tpu_torch.ops import bf16_round
+    x = _gelu_inputs(dev)
+    for v in (x, x[1:]):
+        before = bf16_round.LAUNCHES_GELU_FWD
+        got = bf16_round.gelu_bf16(v, f32_out)
+        assert bf16_round.LAUNCHES_GELU_FWD == before + 1
+        assert _same_bytes(got, bf16_round.gelu_plain(v, f32_out))
+
+
+@pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
+def test_gelu_bf16_backward_kernel_is_the_op_chain(dev, g_dtype):
+    """The backward kernel gives the plain chain's bytes for a bf16 and an
+    f32 cotangent (rounded first), also on unaligned views and with a
+    cotangent laid out otherwise than x (channels last), in the chain's
+    layout."""
+    from dvsg_tpu_torch.ops import bf16_round
+    x = _gelu_inputs(dev)
+    rng = np.random.default_rng(12)
+    g = torch.from_numpy(rng.normal(0, 1.0, x.numel()).astype(np.float32)
+                         ).to(dev).to(g_dtype)
+    for xv, gv in ((x, g), (x[1:], g[:-1]), (x[:-2], g[2:])):
+        before = bf16_round.LAUNCHES_GELU_BWD
+        got = bf16_round.gelu_bf16_bwd(xv, gv)
+        assert bf16_round.LAUNCHES_GELU_BWD == before + 1
+        assert _same_bytes(got, bf16_round.gelu_grad_plain(xv, gv))
+    x4 = x[:2 * 16 * 32 * 32].view(2, 16, 32, 32)
+    g4 = g[:x4.numel()].view(2, 32, 32, 16).permute(0, 3, 1, 2)
+    assert _same_bytes(bf16_round.gelu_bf16_bwd(x4, g4),
+                       bf16_round.gelu_grad_plain(x4, g4))
+
+
+def test_bf16_train_step_launches_the_gelu_kernels(dev, monkeypatch):
+    """A bf16 train step of the corr model launches the forward kernel once
+    a GELU call and the backward kernel once a GELU call."""
+    from dvsg_tpu_torch.config import TrainConfig
+    from dvsg_tpu_torch.models import motion_cnn
+    from dvsg_tpu_torch.ops import bf16_round
+    from dvsg_tpu_torch.train import loop
+    params, mcfg, _ = _fast_setup(n_clips=1, frames=8)
+    mcfg, params = _variant(mcfg, "bf16", params)
+    cfg = TrainConfig(model=mcfg, batch_size=2, steps=4, warmup_steps=1)
+    state = loop.build_state(cfg, params, dev)
+    calls = []
+    apply = motion_cnn._GeluBf16.apply
+    monkeypatch.setattr(motion_cnn._GeluBf16, "apply",
+                        lambda *a: calls.append(1) or apply(*a))
+    before = bf16_round.LAUNCHES_GELU_FWD, bf16_round.LAUNCHES_GELU_BWD
+    aux = loop.train_step(state, loop.step_generator(0, 0), cfg)
+    assert all(np.isfinite(float(v)) for v in aux.values())
+    levels = motion_cnn.pyramid_levels(mcfg)
+    assert len(calls) == 1 + levels * (1 + 2 * mcfg.blocks_per_level)
+    assert (bf16_round.LAUNCHES_GELU_FWD - before[0],
+            bf16_round.LAUNCHES_GELU_BWD - before[1]) == (len(calls),) * 2
+
+
+def test_bf16_train_steps_with_the_kernels_equal_the_chain(dev,
+                                                           monkeypatch):
+    """Two bf16 train steps of the corr model through the GELU kernels give
+    the op chain's losses and weights bit for bit under cuDNN's
+    deterministic algorithms: the kernels keep the chain's bytes and its
+    output layouts, so every later op computes as before."""
+    from dvsg_tpu_torch.config import TrainConfig
+    from dvsg_tpu_torch.ops import bf16_round
+    from dvsg_tpu_torch.train import loop
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    params, mcfg, _ = _fast_setup(n_clips=1, frames=8)
+    mcfg, params = _variant(mcfg, "bf16", params)
+    cfg = TrainConfig(model=mcfg, batch_size=4, steps=4, warmup_steps=1)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(bf16_round, "_launch_fwd",
+                                bf16_round.gelu_plain)
+            monkeypatch.setattr(bf16_round, "_launch_bwd",
+                                bf16_round.gelu_grad_plain)
+        state = loop.build_state(cfg, params, dev)
+        losses = [float(loop.train_step(state, loop.step_generator(2, k),
+                                        cfg)["total"]) for k in range(2)]
+        runs.append((losses, {n: p.detach().clone()
+                              for n, p in state.model.named_parameters()}))
+    assert runs[0][0] == runs[1][0]
+    assert [n for n, p in runs[0][1].items()
+            if not torch.equal(p, runs[1][1][n])] == []
+
+
+def test_gelu_on_the_card_never_takes_the_plain_path(dev, monkeypatch):
+    """bf16 CUDA tensors go to the kernels: with the plain chains made to
+    raise on a CUDA tensor, the model's GELU, forward (both outputs) and
+    backward, still runs (the launchers replay the chains on the meta
+    device for their outputs' layout)."""
+    from dvsg_tpu_torch.models import motion_cnn
+    from dvsg_tpu_torch.ops import bf16_round
+
+    def refusing(chain):
+        def refuse(*args):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise AssertionError("a CUDA tensor reached the plain path")
+            return chain(*args)
+        return refuse
+    for name in ("gelu_plain", "gelu_grad_plain", "_gelu_gate_plain"):
+        monkeypatch.setattr(bf16_round, name,
+                            refusing(getattr(bf16_round, name)))
+    x = _gelu_inputs(dev)[:4096].view(4, 4, 16, 16).requires_grad_()
+    for f32_out in (False, True):
+        y = motion_cnn.gelu(x, f32_out)
+        (gx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+        assert gx.dtype == torch.bfloat16 and gx.shape == x.shape
+
+
 def test_profiler_traces_the_kernel_on_the_card(dev, tmp_path):
     """torch.profiler sees the ctypes-launched offsets kernel on the card:
     the summary counts it once a chunk and the device lane has an idle

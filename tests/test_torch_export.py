@@ -357,7 +357,8 @@ def test_export_for_the_card_without_one(card_artifacts, frames, mode):
 
 def test_export_for_the_card_takes_the_card_branches():
     """bf16 convolutions stay bf16 in a trace for the card (cuDNN's f32
-    accumulation); the CPU's trace runs them in f32."""
+    accumulation); the CPU's trace runs them in f32. The bf16 GELU is the
+    registered op in the card's trace (its kernel on the card)."""
     import dataclasses
     cfg = CFG.replace(model=dataclasses.replace(MCFG, dtype="bfloat16"))
 
@@ -370,6 +371,8 @@ def test_export_for_the_card_takes_the_card_branches():
                                           device="cpu")
     assert torch.bfloat16 in conv_dtypes(card)
     assert torch.bfloat16 not in conv_dtypes(cpu)
+    assert any("dvsg_torch.gelu_bf16" in str(n.target)
+               for n in card.program.graph.nodes)
     assert card.in_avals[0] == cpu.in_avals[0] == [[2, 4, H, W, 3],
                                                    "uint8"]
 
