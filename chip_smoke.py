@@ -1087,7 +1087,9 @@ def smooth_stage_times(stab, lag_stab, clip: np.ndarray, dev) -> dict:
     deltas, conf = pathsmooth.measure(cfg, seq)
     e, _ = pathsmooth.corrections_from_measured(cfg, deltas, conf, T_CHUNK,
                                                 state)
-    carry = lag_stab._init_lag_carry(clip[0])
+    smooth_step = stab_lib.ChunkStep(cfg, model)
+    lag_step = stab_lib.ChunkStep(lag_cfg, model)
+    carry = lag_step.fresh_carry(frames)
     d_ext = torch.cat([carry[2], deltas])
     c_ext = torch.cat([carry[3], conf])
     stages = {
@@ -1099,10 +1101,8 @@ def smooth_stage_times(stab, lag_stab, clip: np.ndarray, dev) -> dict:
         "apply": lambda: pathsmooth.apply_corrections(cfg, offsets, e),
         "plain_chunk": lambda: stab_lib.stabilize_chunk_impl(
             cfg, model, frames, halo),
-        "smoothed_chunk": lambda: stab_lib.stabilize_chunk_smooth_impl(
-            cfg, model, frames, halo, state),
-        "lag_chunk": lambda: stab_lib.stabilize_chunk_lag_impl(
-            lag_cfg, model, frames, halo, *carry),
+        "smoothed_chunk": lambda: smooth_step(frames, halo),
+        "lag_chunk": lambda: lag_step(frames, halo),
     }
     return {name: {"b2b_ms": b2b_ms(fn), "queued_ms": queued_ms(fn)}
             for name, fn in stages.items()}
@@ -1115,18 +1115,14 @@ def no_host_sync(stab, lag_stab, clip: np.ndarray, dev) -> None:
     host synchronization inside raises."""
     frames = stab_lib.put_frames(clip[:T_CHUNK], dev)
     halo = stab._initial_halo(clip[0])
-    state = pathsmooth.initial_state(dev)
-    carry = lag_stab._init_lag_carry(clip[0])
-    steps = (lambda: stab_lib.stabilize_chunk_smooth_impl(
-                 stab.cfg, stab.model, frames, halo, state),
-             lambda: stab_lib.stabilize_chunk_lag_impl(
-                 lag_stab.cfg, lag_stab.model, frames, halo, *carry))
+    steps = (stab_lib.ChunkStep(stab.cfg, stab.model),
+             stab_lib.ChunkStep(lag_stab.cfg, lag_stab.model))
     for step in steps:
-        step()
+        step(frames, halo)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            step()
+            step(frames, halo)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
@@ -1908,14 +1904,10 @@ def same_bytes(name: str, got, want) -> None:
                                  f"Stabilizer.stabilize_clip ({n} bytes)")
 
 
-def drive(cfg: StabilizeConfig, model, clips: np.ndarray, dev):
+def drive(cfg: StabilizeConfig, model, clips: np.ndarray):
     """A clip batch through the batched step of ``cfg``'s mode."""
-    step = dp.batch_step(cfg)
-    if cfg.path_smooth_lag > 0:
-        return stab_lib.drive_chunked_batch_lag(step, model, cfg, clips)
-    if cfg.path_smooth > 0:
-        step = pathsmooth.thread_batch_state(step, len(clips), dev)
-    return stab_lib.drive_chunked_batch(step, model, cfg, clips)
+    return stab_lib.drive_chunked_batch(
+        stab_lib.ChunkStep(cfg, model, batched=True), clips)
 
 
 def concurrent_requests(engine, clips) -> list:
@@ -2004,12 +1996,8 @@ def batch_step_times(cfg, model, clips: np.ndarray, dev) -> dict:
         frames = stab_lib.put_frames(clips[:b, :T_CHUNK], dev)
         halos = torch.stack([stab_lib.initial_halo(cfg, c[0], dev)
                              for c in clips[:b]])
-        if cfg.path_smooth > 0:
-            states = torch.zeros((b, pathsmooth.STATE_DIM), device=dev)
-            fn = lambda: dp._stabilize_chunk_batch_smooth(
-                cfg, model, frames, halos, states)
-        else:
-            fn = lambda: dp._stabilize_chunk_batch(cfg, model, frames, halos)
+        step = stab_lib.ChunkStep(cfg, model, batched=True)
+        fn = lambda: step(frames, halos)
         rec = {"b2b_ms": b2b_ms(fn), "queued_ms": queued_ms(fn)}
         rec["device_fps"] = 1e3 * T_CHUNK * b / rec["queued_ms"]
         rec["b2b_fps"] = 1e3 * T_CHUNK * b / rec["b2b_ms"]
@@ -2035,18 +2023,14 @@ def no_host_sync_batched(cfgs, model, clips: np.ndarray, dev) -> None:
     frames = stab_lib.put_frames(clips[:b, :T_CHUNK], dev)
     halos = torch.stack([stab_lib.initial_halo(cfgs["causal"], c[0], dev)
                          for c in clips[:b]])
-    states = torch.zeros((b, pathsmooth.STATE_DIM), device=dev)
-    carries = stab_lib.init_lag_carries(cfgs["lag"], clips[:b, 0], dev)
-    steps = (lambda: dp._stabilize_chunk_batch_smooth(
-                 cfgs["causal"], model, frames, halos, states),
-             lambda: dp._stabilize_chunk_batch_lag(
-                 cfgs["lag"], model, frames, halos, carries))
+    steps = (stab_lib.ChunkStep(cfgs["causal"], model, batched=True),
+             stab_lib.ChunkStep(cfgs["lag"], model, batched=True))
     for step in steps:
-        step()
+        step(frames, halos)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            step()
+            step(frames, halos)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
@@ -2124,7 +2108,7 @@ def phase_batch(seed: int, dev, work_dir: str):
                                  / T_CHUNK)
             for b in BATCH_SIZES:
                 out, n = counted(f"[{preset} {mode}] B={b}", n_chunks,
-                                 lambda: drive(cfg, model, inv[:b], dev))
+                                 lambda: drive(cfg, model, inv[:b]))
                 launches += n
                 same_bytes(f"[{preset} {mode}] batch of {b}", out,
                            single[:b])
@@ -2589,7 +2573,7 @@ def phase_parallel_export(seed: int, dev, work_dir: str):
                                                   HEIGHT, WIDTH, device=dev)
             export_lib.save_exported(exp, path, base)
             loaded = export_lib.load_exported(path)
-            live = drive(base, model, clips, dev)
+            live = drive(base, model, clips)
             out, n = counted(f"[{preset}] batch artifact B={P9_CLIPS}",
                              n_chunks, lambda: loaded.stabilize_clips(clips))
             launches += n
@@ -2736,8 +2720,8 @@ def phase_bf16_stacked(seed: int, dev, work_dir: str):
         same_bytes(f"[{preset} bf16] T=8 vs 16", [t8], [out])
         pair = np.stack([clip, clip[::-1].copy()])
         with torch.inference_mode():
-            b2 = drive(cfg, stab.model, pair, dev)
-            b1 = drive(cfg, stab.model, pair[:1], dev)
+            b2 = drive(cfg, stab.model, pair)
+            b1 = drive(cfg, stab.model, pair[:1])
         same_bytes(f"[{preset} bf16] batch 2", [b2[0], b1[0]], [out, out])
         resumed, written, _ = interrupted_then_resumed(stab, clip, 1)
         same_bytes(f"[{preset} bf16] resumed at {written}", [resumed], [out])

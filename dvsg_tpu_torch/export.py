@@ -61,14 +61,12 @@ from dvsg_tpu_torch import resolve_device
 from dvsg_tpu_torch.config import (StabilizeConfig, config_to_json,
                                    stabilize_config_from_dict)
 from dvsg_tpu_torch.ops import warp_wide  # noqa: F401 — registers the op
-from dvsg_tpu_torch.parallel import dp
 from dvsg_tpu_torch.parallel import mesh as mesh_lib
 from dvsg_tpu_torch.pipeline import pathsmooth
-from dvsg_tpu_torch.pipeline.stabilize import (Stabilizer, build_model,
+from dvsg_tpu_torch.pipeline.stabilize import (ChunkStep, Stabilizer,
+                                               build_model,
                                                drive_chunked_batch,
-                                               initial_halo,
-                                               stabilize_chunk_impl,
-                                               stabilize_chunk_smooth_impl)
+                                               initial_halo)
 
 _MAGIC = b"DVSGT1\n"
 _REFERENCE_MAGIC = b"DVSGX1\n"      # dvsg_tpu.export's artifacts
@@ -89,25 +87,16 @@ class Exported:
 
 
 class _ChunkProgram(torch.nn.Module):
-    """The chunk step closed over (cfg, model): single-clip, or batched
-    (``parallel.dp.batch_step``)."""
+    """The pure chunk step of ``cfg``'s mode closed over (cfg, model), with
+    or without a leading clip axis (``ChunkStep.program``)."""
 
-    def __init__(self, cfg: StabilizeConfig, model: torch.nn.Module,
-                 batched: bool):
+    def __init__(self, cfg: StabilizeConfig, model: torch.nn.Module):
         super().__init__()
-        self.cfg = cfg
         self.model = model
-        self.batched = batched
+        self.step = ChunkStep(cfg, model).program
 
     def forward(self, frames_u8, halo, *smooth_state):
-        if self.batched:
-            return dp.batch_step(self.cfg)(self.model, frames_u8, halo,
-                                           *smooth_state)
-        if smooth_state:
-            return stabilize_chunk_smooth_impl(self.cfg, self.model,
-                                               frames_u8, halo,
-                                               smooth_state[0])
-        return stabilize_chunk_impl(self.cfg, self.model, frames_u8, halo)
+        return self.step(frames_u8, halo, *smooth_state)
 
 
 def _avals(tensors) -> list:
@@ -120,7 +109,7 @@ def _export(cfg: StabilizeConfig, params: dict, lead: tuple, height: int,
     """Trace the chunk step for inputs with leading axes ``lead`` ((B,) for
     a batch, () for one clip)."""
     model = build_model(cfg.model, params, device)
-    prog = _ChunkProgram(cfg, model, batched=bool(lead))
+    prog = _ChunkProgram(cfg, model)
     frames = torch.zeros(lead + (cfg.chunk_frames, height, width,
                                  cfg.model.channels),
                          dtype=torch.uint8, device=device)
@@ -225,8 +214,7 @@ def _export_for_card(cfg: StabilizeConfig, params: dict, lead: tuple,
     tables it builds from numpy are real CPU constants that the graph
     copies to the card."""
     prog = _ChunkProgram(cfg, build_model(cfg.model, params,
-                                          torch.device("cpu")),
-                         batched=bool(lead))
+                                          torch.device("cpu")))
     real = dict(prog.named_parameters())
     mode = FakeTensorMode(allow_non_fake_inputs=True)
     with mode:
@@ -353,19 +341,8 @@ class _ArtifactStabilizer(Stabilizer):
         self.model = None
         self.chunks_seen = 0
         self.coverage_fallbacks = 0
-        self._smooth_state = None
-        self._loaded = loaded
-
-    @torch.inference_mode()
-    def _chunk(self, dev_chunk: torch.Tensor, halo: torch.Tensor):
-        self.chunks_seen += 1
-        if not self._loaded.smooth:
-            return self._loaded.chunk(dev_chunk, halo)
-        if self._smooth_state is None:
-            self.begin_stream()
-        out, halo, self._smooth_state, offs = self._loaded.chunk(
-            dev_chunk, halo, self._smooth_state)
-        return out, halo, offs
+        self.step = ChunkStep(self.cfg, program=loaded._module,
+                              device=self.device)
 
 
 class ExportedStabilizer:
@@ -433,14 +410,9 @@ class ExportedStabilizer:
         mine = clips_u8
         if self.mesh is not None:
             mine = clips_u8[self.mesh.shard(self.n_clips, "clip batch")]
-        if self.smooth:
-            fn = pathsmooth.thread_batch_state(
-                lambda _m, f, h, s: self.chunk(f, h, s), len(mine),
-                self.device)
-        else:
-            fn = lambda _m, f, h: self.chunk(f, h)  # noqa: E731
-        out = drive_chunked_batch(fn, None, self.cfg, mine,
-                                  device=self.device)
+        out = drive_chunked_batch(
+            ChunkStep(self.cfg, program=self._module, device=self.device,
+                      batched=True), mine)
         if self.mesh is not None:
             out = mesh_lib.all_gather_rows(self.mesh, out)
         return out

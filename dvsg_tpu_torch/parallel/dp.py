@@ -1,10 +1,10 @@
-"""Batched chunk steps, per-clip data parallelism and data-parallel
-training.
+"""Per-clip data parallelism and data-parallel training.
 
 The JAX package maps the single-clip step over a leading clip axis with
 ``jax.vmap``; the offsets kernel is a ctypes launch, which
-``torch.func.vmap`` cannot map, so here the clip axis is folded into the
-frame axis instead (pipeline/stabilize.py):
+``torch.func.vmap`` cannot map, so the port's batched chunk step (a
+``ChunkStep`` with ``batched=True``, pipeline/stabilize.py) folds the clip
+axis into the frame axis instead:
 
 * ``downscale_norm`` over the B·T frames;
 * the per-clip model-resolution sequence (B, T+N−1, mh, mw, C);
@@ -23,113 +23,40 @@ all-reduce before every rank takes the same AdamW step.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from dvsg_tpu_torch.config import StabilizeConfig, TrainConfig
 from dvsg_tpu_torch.parallel import mesh as mesh_lib
-from dvsg_tpu_torch.pipeline import pathsmooth
-from dvsg_tpu_torch.pipeline.stabilize import (build_model,
-                                               drive_chunked_batch,
-                                               drive_chunked_batch_lag,
-                                               stabilize_chunk_impl,
-                                               stabilize_chunk_lag_impl,
-                                               stabilize_chunk_smooth_impl)
+from dvsg_tpu_torch.pipeline.stabilize import (ChunkStep, build_model,
+                                               drive_chunked_batch)
 from dvsg_tpu_torch.train import loop as train_loop
-
-
-def _check(frames_u8: torch.Tensor, halos: torch.Tensor) -> None:
-    if frames_u8.dim() != 5 or halos.dim() != 5 \
-            or frames_u8.shape[0] != halos.shape[0]:
-        raise ValueError(f"need (B, T, H, W, C) frames and (B, window-1, mh, "
-                         f"mw, C) halos, got {tuple(frames_u8.shape)} and "
-                         f"{tuple(halos.shape)}")
-
-
-def _stabilize_chunk_batch(cfg: StabilizeConfig, model, frames_u8, halos):
-    """The plain chunk step over a leading clip axis.
-
-    frames_u8: (B, T, H, W, C) uint8; halos: (B, window-1, mh, mw, C) f32.
-    Returns (out (B, T, H, W, C), new_halos, offsets (B, T, gh, gw, 2)).
-    """
-    _check(frames_u8, halos)
-    return stabilize_chunk_impl(cfg, model, frames_u8, halos)
-
-
-def _stabilize_chunk_batch_smooth(cfg: StabilizeConfig, model, frames_u8,
-                                  halos, states):
-    """Path-smoothed batched chunk step: per-clip (B, 4) EMA states (each
-    clip's camera path is independent). Returns (out, new_halos,
-    new_states, offsets)."""
-    _check(frames_u8, halos)
-    return stabilize_chunk_smooth_impl(cfg, model, frames_u8, halos, states)
-
-
-def _stabilize_chunk_batch_lag(cfg: StabilizeConfig, model, frames_u8,
-                               halos, carries):
-    """Fixed-lag batched chunk step: the per-clip carries (D raw frames, D
-    offset grids, measurement window; ``init_lag_carries``) ride the clip
-    axis, and emission is shifted by D as in the single-clip lag step.
-    Returns (out, new_halos, new_carries, offsets)."""
-    _check(frames_u8, halos)
-    out, new_halos, cf, co, cd, cc, offs = stabilize_chunk_lag_impl(
-        cfg, model, frames_u8, halos, *carries)
-    return out, new_halos, (cf, co, cd, cc), offs
-
-
-def batch_step(cfg: StabilizeConfig):
-    """The batched chunk step of ``cfg``'s mode, taking (model, frames,
-    halos) and, for the smoothed and lag modes, the per-clip states or lag
-    carries."""
-    if cfg.path_smooth_lag > 0:
-        return functools.partial(_stabilize_chunk_batch_lag, cfg)
-    if cfg.path_smooth > 0:
-        return functools.partial(_stabilize_chunk_batch_smooth, cfg)
-    return functools.partial(_stabilize_chunk_batch, cfg)
 
 
 # ---------------------------------------------------------------------------
 # Sharded batched stabilization (a batch of clips, one shard per rank)
 # ---------------------------------------------------------------------------
 
-def make_sharded_chunk_fn(cfg: StabilizeConfig, mesh: mesh_lib.Mesh):
-    """This rank's part of the clip-sharded chunk step: the batched step of
-    ``cfg``'s mode (``batch_step``) over the rank's B/n clips. With
-    cfg.path_smooth > 0 it takes and returns the (B/n, 4) per-clip
-    smoothing states (``pathsmooth.thread_batch_state`` adapts it to the
-    3-argument drive loops); with cfg.path_smooth_lag > 0 it is the lag
-    step for ``drive_chunked_batch_lag``. It makes no collective."""
-    if mesh.rank is None:
-        raise ValueError("this process is not in the mesh")
-    return batch_step(cfg)
-
-
 class ShardedClipStabilizer:
     """Stabilize a batch of equal-length clips, B/n clips on each rank of
-    the mesh; every rank gets the whole batch back."""
+    the mesh; every rank gets the whole batch back. Each rank runs the
+    batched ``ChunkStep`` over its B/n clips; the steps make no
+    collective."""
 
     def __init__(self, cfg: StabilizeConfig, params: dict,
                  mesh: mesh_lib.Mesh):
+        if mesh.rank is None:
+            raise ValueError("this process is not in the mesh")
         self.cfg = cfg
         self.mesh = mesh
-        self._fn = make_sharded_chunk_fn(cfg, mesh)
         self.model = build_model(cfg.model, params, mesh.device)
 
     def stabilize_clips(self, clips_u8: np.ndarray) -> np.ndarray:
         """clips_u8 (B, T_total, H, W, C) uint8 → the same shape,
         stabilized, on every rank (one gather of the outputs)."""
         mine = clips_u8[self.mesh.shard(clips_u8.shape[0], "clip batch")]
-        if self.cfg.path_smooth_lag > 0:
-            out = drive_chunked_batch_lag(self._fn, self.model, self.cfg,
-                                          mine)
-        else:
-            fn = self._fn
-            if self.cfg.path_smooth > 0:
-                fn = pathsmooth.thread_batch_state(fn, len(mine),
-                                                   self.mesh.device)
-            out = drive_chunked_batch(fn, self.model, self.cfg, mine)
+        out = drive_chunked_batch(
+            ChunkStep(self.cfg, self.model, batched=True), mine)
         return mesh_lib.all_gather_rows(self.mesh, out)
 
 

@@ -37,7 +37,7 @@ from dvsg_tpu_torch.models.motion_cnn import (GN_GROUPS, MotionEstimator,
                                               ResBlock, SameConv2d, conv_norm,
                                               gelu)
 from dvsg_tpu_torch.parallel import mesh as mesh_lib
-from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
+from dvsg_tpu_torch.pipeline.stabilize import ChunkStep, Stabilizer
 
 
 def gather_channels(axis: mesh_lib.Mesh, y: torch.Tensor) -> torch.Tensor:
@@ -140,6 +140,7 @@ class TPStabilizer(Stabilizer):
         super().__init__(cfg, params, device=mesh.device)
         self.mesh = mesh
         self.model = tp_model(self.model, mesh)
+        self.step = ChunkStep(cfg, self.model, device=self.device)
 
     def stabilize_clips(self, clips_u8: np.ndarray) -> np.ndarray:
         """(B, T, H, W, C) uint8 → stabilized, B/d clips on each of the d

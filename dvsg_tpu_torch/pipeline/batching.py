@@ -3,8 +3,8 @@
 ``BatchStabilizer`` lets concurrent callers share the card: request
 threads submit in-memory clips and block; one device worker thread groups
 whatever arrived within a small window (plus everything already queued)
-into one batched chunk step per chunk (parallel/dp.py: the clip axis
-folded into the frame axis, one launch of the offsets kernel over every
+into one batched chunk step per chunk (pipeline/stabilize.py's
+``ChunkStep``: the clip axis folded into the frame axis, one launch of the offsets kernel over every
 frame of the group) and hands each caller its clip back.
 
 Groups are padded to the next power of two with copies of their first
@@ -28,12 +28,10 @@ import torch
 
 from dvsg_tpu_torch import resolve_device
 from dvsg_tpu_torch.config import StabilizeConfig
-from dvsg_tpu_torch.parallel import dp
 from dvsg_tpu_torch.pipeline import pathsmooth
 from dvsg_tpu_torch.pipeline.autocrop import CROP_DENOM
-from dvsg_tpu_torch.pipeline.stabilize import (build_model,
+from dvsg_tpu_torch.pipeline.stabilize import (ChunkStep, build_model,
                                                drive_chunked_batch,
-                                               drive_chunked_batch_lag,
                                                initial_halo)
 
 
@@ -261,43 +259,29 @@ class BatchStabilizer:
         batch = np.stack(clips)                 # (bp, max_len, H, W, C)
 
         cfg = self._group_cfg(crop)
-        step = dp.batch_step(cfg)
-        cov: list = []
         any_ret = any(r.return_state for r in items)
-        wrapper = None
-        if cfg.path_smooth_lag > 0:
-            # Whole-clip lag requests: emission shifted by D, each clip
-            # padded with its own last frame.
-            full = drive_chunked_batch_lag(step, self.model, cfg, batch,
-                                           fetch_clips=b, coverage_out=cov)
-        else:
-            init_halos = None
-            if any(r.halo_in is not None for r in items):
-                hs = [r.halo_in if r.halo_in is not None
-                      else initial_halo(cfg, r.frames[0],
-                                        self.device).cpu().numpy()
-                      for r in items]
-                init_halos = np.stack(hs + [hs[0]] * (bp - b))
-            if cfg.path_smooth > 0:
-                init_states = None
-                if any(r.smooth_state is not None for r in items):
-                    fresh = np.zeros((pathsmooth.STATE_DIM,), np.float32)
-                    ss = [r.smooth_state if r.smooth_state is not None
-                          else fresh for r in items]
-                    init_states = np.stack(ss + [ss[0]] * (bp - b))
-                step = wrapper = pathsmooth.thread_batch_state(
-                    step, bp, self.device, init_states=init_states)
-            res = drive_chunked_batch(step, self.model, cfg, batch,
-                                      fetch_clips=b, coverage_out=cov,
-                                      initial_halos=init_halos,
-                                      return_halos=any_ret)
-            full = res
-            if any_ret:
-                full, final_halos = res
-                final_halos = final_halos.cpu().numpy()
-                final_states = wrapper.states().cpu().numpy()
+        init_halos = carry = None
+        if any(r.halo_in is not None for r in items):
+            hs = [r.halo_in if r.halo_in is not None
+                  else initial_halo(cfg, r.frames[0],
+                                    self.device).cpu().numpy()
+                  for r in items]
+            init_halos = np.stack(hs + [hs[0]] * (bp - b))
+        if any(r.smooth_state is not None for r in items):
+            fresh = np.zeros((pathsmooth.STATE_DIM,), np.float32)
+            ss = [r.smooth_state if r.smooth_state is not None else fresh
+                  for r in items]
+            carry = (torch.from_numpy(np.stack(ss + [ss[0]] * (bp - b))
+                                      ).to(self.device),)
+        step = ChunkStep(cfg, self.model, batched=True, carry=carry)
+        full = drive_chunked_batch(step, batch, fetch_clips=b,
+                                   initial_halos=init_halos,
+                                   return_halos=any_ret)
+        if any_ret:
+            full, final_halos = full
+            final_halos = final_halos.cpu().numpy()
+            final_states = step.carry[0].cpu().numpy()
         self.stats["batches"] += 1
-        self.stats["coverage_fallback_chunks"] += sum(cov)
         if crop is not None:
             seen = self.stats.get("crops_seen", [])
             if crop not in seen:

@@ -1,9 +1,10 @@
 """Batched multi-clip streaming: N videos in → N stabilized videos out.
 
 A batch of clips goes through one batched chunk step per chunk
-(parallel/dp.py). Host decode runs in one thread per clip, encode likewise,
-with bounded queues, so host I/O overlaps the device steps; each chunk's
-output is copied to the host behind the next chunk's compute.
+(pipeline/stabilize.py's ``ChunkStep``). Host decode runs in one thread
+per clip, encode likewise, with bounded queues, so host I/O overlaps the
+device steps; each chunk's output is copied to the host behind the next
+chunk's compute.
 
 Clips of different lengths are handled by replicate-padding finished clips
 until the longest clip ends (their outputs are dropped). Clips must share
@@ -22,11 +23,11 @@ import torch
 
 from dvsg_tpu_torch import resolve_device
 from dvsg_tpu_torch.config import StabilizeConfig
-from dvsg_tpu_torch.parallel import dp
 from dvsg_tpu_torch.parallel import mesh as mesh_lib
 from dvsg_tpu_torch.pipeline import pathsmooth
-from dvsg_tpu_torch.pipeline.stabilize import (BehindFetch, build_model,
-                                               initial_halo, put_frames)
+from dvsg_tpu_torch.pipeline.stabilize import (BehindFetch, ChunkStep,
+                                               build_model, initial_halo,
+                                               put_frames)
 from dvsg_tpu_torch.utils.metrics import StageTimer
 
 _SENTINEL = None
@@ -149,10 +150,7 @@ def _stabilize_local(cfg: StabilizeConfig, params: dict, readers: Sequence,
     n = len(readers)
     t_chunk = cfg.chunk_frames
     h, w = readers[0].height, readers[0].width
-    model = build_model(cfg.model, params, dev)
-    fn = dp.batch_step(cfg)
-    if cfg.path_smooth > 0:
-        fn = pathsmooth.thread_batch_state(fn, n, dev)
+    step = ChunkStep(cfg, build_model(cfg.model, params, dev), batched=True)
 
     # A decode error is acted on only when its (final) empty batch
     # arrives, so every frame decoded before it is still stabilized and
@@ -200,7 +198,7 @@ def _stabilize_local(cfg: StabilizeConfig, params: dict, readers: Sequence,
     last = [None] * n           # last frame of each clip, for padding
     try:
         with torch.inference_mode():
-            _run_main_loop(t_chunk, n, h, w, fn, model, cfg, dev, timer,
+            _run_main_loop(t_chunk, n, h, w, step, cfg, dev, timer,
                            dec_qs, enc_qs, dec_errors, enc_errors, done,
                            last, _drain_decode)
     except BaseException:
@@ -224,7 +222,7 @@ def _stabilize_local(cfg: StabilizeConfig, params: dict, readers: Sequence,
     return MultiClipResult(written, merged, [0] * n)
 
 
-def _run_main_loop(t_chunk, n, h, w, fn, model, cfg, dev, timer, dec_qs,
+def _run_main_loop(t_chunk, n, h, w, step, cfg, dev, timer, dec_qs,
                    enc_qs, dec_errors, enc_errors, done, last,
                    _drain_decode) -> None:
     halos = None
@@ -289,7 +287,7 @@ def _run_main_loop(t_chunk, n, h, w, fn, model, cfg, dev, timer, dec_qs,
         with timer.stage("stack"):
             batch = np.stack(chunks)
         with timer.stage("dispatch"):
-            out, halos, _ = fn(model, put_frames(batch, dev), halos)
+            out, halos, _ = step(put_frames(batch, dev), halos)
         if pending is not None:
             flush(pending)
         with timer.stage("d2h"):       # the pinned buffer, the copy queued

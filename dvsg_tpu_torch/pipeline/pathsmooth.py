@@ -58,7 +58,7 @@ def reject_unsupported(cfg: StabilizeConfig, surface: str) -> None:
         raise ValueError(
             f"path_smooth is not supported on {surface}; the Stabilizer's "
             "clip and stream loops, the overlapped stream loop, the online "
-            "push API, the clip-batch drivers (thread_batch_state), "
+            "push API, the clip-batch driver (drive_chunked_batch), "
             "stabilize_multi / stabilize-batch and the serving engine carry "
             "it — this caller opted out explicitly")
 
@@ -74,40 +74,13 @@ def lag_reject(cfg: StabilizeConfig, surface: str) -> None:
             f"path_smooth_lag is not supported on {surface}; supported: "
             "Stabilizer.stabilize_clip / stabilize_stream (stabilize "
             "without --overlap), the in-memory clip-batch driver "
-            "(drive_chunked_batch_lag) and the serving engine's whole "
+            "(drive_chunked_batch) and the serving engine's whole "
             "uploads (BatchStabilizer without segment carries)")
 
 
 def initial_state(device="cpu") -> torch.Tensor:
     """Fresh smoothing state for the start of a stream: D = P − S = 0."""
     return torch.zeros((STATE_DIM,), dtype=torch.float32, device=device)
-
-
-def thread_batch_state(fn4, n_clips: int, device, init_states=None):
-    """Adapt a 4-argument batched smoothed step ``fn4(model, frames, halos,
-    states)`` to the 3-argument contract of the clip-batch drive loops by
-    carrying the per-clip (B, STATE_DIM) states in a closure.
-
-    The loops call ``fn(model, frames, halos)`` strictly in chunk order, so
-    the closure is exact. States start fresh, or from ``init_states`` (a
-    mid-stream carry); the offsets stay the third output, and the final
-    states are read with ``fn.states()``.
-    """
-    if init_states is not None:
-        states = torch.as_tensor(np.asarray(init_states, np.float32)
-                                 ).to(device)
-    else:
-        states = torch.zeros((n_clips, STATE_DIM), dtype=torch.float32,
-                             device=device)
-    box = [states]
-
-    def fn(model, frames, halos):
-        out, new_halos, new_states, offs = fn4(model, frames, halos, box[0])
-        box[0] = new_states
-        return out, new_halos, offs
-
-    fn.states = lambda: box[0]
-    return fn
 
 
 # --- shape-only tables (numpy, as the JAX package computes them) -----------

@@ -15,6 +15,7 @@ the camera-path smoother's state (pipeline/pathsmooth.py), and with
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional, Tuple
 
@@ -215,6 +216,141 @@ def stabilize_chunk_lag_impl(cfg: StabilizeConfig,
             emit_offsets)
 
 
+_LAG_KEYS = ("lag_offsets", "lag_d", "lag_c")     # resume-record keys
+
+
+class ChunkStep:
+    """The chunk step of ``cfg``'s smoothing mode, holding its own carry.
+
+    ``step(frames_u8, halo)`` → (emitted u8 frames, new halo, offsets),
+    frames (T, H, W, C) or, with ``batched``, (B, T, H, W, C), the halo
+    with the same leading clip axis. Between calls the step keeps
+    ``carry``: nothing in plain mode, the (…, 4) EMA state with
+    ``cfg.path_smooth``, and with ``cfg.path_smooth_lag`` = D the D
+    delayed raw frames, their offset grids and the measurement window
+    (``stabilize_chunk_lag_impl``): a lag step emits the frames it is
+    given ``shift`` = D frames late. A carry of None is made fresh at the
+    next call (``fresh_carry``); a caller may hand one in (a serving
+    segment's states, or ``restore`` from a resume record) and read the
+    final one back.
+
+    ``program`` is the pure step ``(frames, halo, *carry) → (out,
+    new_halo, *new_carry, offsets)`` to wrap (an exported artifact's,
+    export.py); by default the mode's ``_impl`` step on ``model``.
+    """
+
+    def __init__(self, cfg: StabilizeConfig,
+                 model: Optional[motion_cnn.MotionEstimator] = None, *,
+                 batched: bool = False, carry: Optional[tuple] = None,
+                 program=None, device=None):
+        self.cfg = cfg
+        self.shift = cfg.path_smooth_lag
+        self.batched = batched
+        self.carry = carry
+        if program is None:
+            impl = (stabilize_chunk_lag_impl if self.shift
+                    else stabilize_chunk_smooth_impl if cfg.path_smooth > 0
+                    else stabilize_chunk_impl)
+            program = functools.partial(impl, cfg, model)
+        self.program = program
+        self.device = _model_device(model) if device is None else device
+
+    def __call__(self, frames_u8: torch.Tensor, halo: torch.Tensor):
+        if self.batched and (frames_u8.dim() != 5 or halo.dim() != 5
+                             or frames_u8.shape[0] != halo.shape[0]):
+            raise ValueError(
+                f"need (B, T, H, W, C) frames and (B, window-1, mh, mw, C) "
+                f"halos, got {tuple(frames_u8.shape)} and "
+                f"{tuple(halo.shape)}")
+        if self.carry is None:
+            self.carry = self.fresh_carry(frames_u8)
+        out, new_halo, *carry, offsets = self.program(frames_u8, halo,
+                                                      *self.carry)
+        self.carry = tuple(carry)
+        return out, new_halo, offsets
+
+    def fresh_carry(self, frames_u8: torch.Tensor) -> tuple:
+        """The carry at the start of a stream whose first chunk is
+        ``frames_u8``: a zero EMA state, or for the lag mode the first
+        frame D times (its emissions are dropped), zero offsets and a
+        zero-delta measurement window with a huge confidence ('healthy, no
+        motion', as the replicate-pad halo)."""
+        cfg, lead, dev = self.cfg, frames_u8.shape[:-4], frames_u8.device
+        if self.shift:
+            gh, gw = cfg.model.grid_size
+            c_len = pathsmooth.lag_carry_len(cfg)
+            return (frames_u8[..., :1, :, :, :].repeat(
+                        *(1,) * len(lead), self.shift, 1, 1, 1),
+                    torch.zeros(lead + (self.shift, gh, gw, 2), device=dev),
+                    torch.zeros(lead + (c_len, pathsmooth.STATE_DIM),
+                                device=dev),
+                    torch.full(lead + (c_len,), 1e6, device=dev))
+        if cfg.path_smooth > 0:
+            return (torch.zeros(lead + (pathsmooth.STATE_DIM,),
+                                dtype=torch.float32, device=dev),)
+        return ()
+
+    def check_record(self, rec: dict) -> None:
+        """Refuse a resume record written under another smoothing mode."""
+        if self.shift:
+            if "lag_offsets" not in rec:
+                raise ValueError(
+                    "resume record was written without the lag smoother's "
+                    "carries but cfg.path_smooth_lag > 0; restart the job "
+                    "(or point --resume-dir elsewhere)")
+            return
+        smooth = rec.get("smooth_state")
+        if "lag_offsets" in rec:
+            # A lag record resumed without the lag would shift every later
+            # frame by D.
+            raise ValueError(
+                "resume record was written by a --path-smooth-lag run but "
+                "cfg.path_smooth_lag == 0; resume with the original lag "
+                "setting")
+        if self.cfg.path_smooth > 0 and smooth is None:
+            # Resuming would jump the camera path at the resume point.
+            raise ValueError(
+                "resume record was written without path smoothing but "
+                "cfg.path_smooth > 0; restart the job (or point "
+                "--resume-dir elsewhere)")
+        if self.cfg.path_smooth == 0 and smooth is not None:
+            # Dropping the state would switch the output from smoothed to
+            # unsmoothed mid-stream.
+            raise ValueError(
+                "resume record carries a path-smoothing state but "
+                "cfg.path_smooth == 0; resume with the original "
+                "--path-smooth setting (or restart the job elsewhere)")
+
+    def record(self) -> dict:
+        """The carry as resume-record arrays, under the JAX package's keys;
+        the lag mode's delayed frames are left out (a resume reads them
+        again from the input)."""
+        if self.shift:
+            return {k: v.cpu().numpy()
+                    for k, v in zip(_LAG_KEYS, self.carry[1:])}
+        return ({"smooth_state": self.carry[0].cpu().numpy()} if self.carry
+                else {})
+
+    def restore(self, rec: Optional[dict] = None,
+                frames: Optional[torch.Tensor] = None) -> None:
+        """Start from a fresh carry, or from resume record ``rec``'s (the
+        lag mode takes its D delayed frames, (D, H, W, C) uint8 on the
+        step's device, beside it). A (2,) or (3,) state of an older record
+        is zero-padded: the missing components start as a fresh EMA."""
+        if rec is None:
+            self.carry = None
+        elif self.shift:
+            self.carry = (frames, *(torch.from_numpy(rec[k]).to(self.device)
+                                    for k in _LAG_KEYS))
+        elif self.cfg.path_smooth > 0:
+            s = np.asarray(rec["smooth_state"], np.float32).reshape(-1)
+            s = np.concatenate([s, np.zeros(pathsmooth.STATE_DIM - len(s),
+                                            np.float32)])
+            self.carry = (torch.from_numpy(s).to(self.device),)
+        else:
+            self.carry = ()
+
+
 def put_frames(host_frames: np.ndarray, device) -> torch.Tensor:
     """Host → device upload of (..., H, W, C) uint8 frames."""
     # np.require copies only what torch cannot wrap (non-contiguous or
@@ -299,131 +435,52 @@ def _model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def _padded_chunks(clips_u8: np.ndarray, t_chunk: int):
-    """(start, (B, T, H, W, C) chunk, valid frames) over a clip batch; the
-    last partial chunk is padded by replicating each clip's final frame."""
-    total = clips_u8.shape[1]
-    for start in range(0, total, t_chunk):
-        chunk = clips_u8[:, start:start + t_chunk]
-        n_valid = chunk.shape[1]
-        if n_valid < t_chunk:
-            pad = np.repeat(chunk[:, -1:], t_chunk - n_valid, axis=1)
-            chunk = np.concatenate([chunk, pad], axis=1)
-        yield chunk, n_valid
-
-
 @torch.inference_mode()
-def drive_chunked_batch(fn, model: motion_cnn.MotionEstimator,
-                        cfg: StabilizeConfig, clips_u8: np.ndarray,
+def drive_chunked_batch(step: ChunkStep, clips_u8: np.ndarray,
                         fetch_clips: Optional[int] = None,
-                        coverage_out: Optional[list] = None,
-                        initial_halos=None, return_halos: bool = False,
-                        device=None):
-    """Drive a batched chunk step ``fn`` over an in-memory clip batch.
+                        initial_halos=None, return_halos: bool = False):
+    """Drive a batched ``ChunkStep`` over an in-memory clip batch.
 
     The chunk/pad/dispatch/fetch loop shared by the clip-batch surfaces
-    (pipeline/batching.py). ``fn(model, frames (B, T, ...), halos)`` returns
-    ``(out, new_halos, ...)`` (parallel/dp.py; ``pathsmooth.
-    thread_batch_state`` for the smoothed step). Chunk k+1 is dispatched
-    before chunk k is fetched (``BehindFetch``), and only the first
-    ``fetch_clips`` clips are fetched: pow2 padding clips are computed,
-    never copied to the host.
-
-    ``coverage_out``: a list, extended to ``fetch_clips`` zeros: the CUDA
-    gather has no coverage band, so no chunk falls back to a slower path
-    (kept for the reporting surface).
+    (pipeline/batching.py, parallel/dp.py, export.py). Emission is shifted
+    by the step's ``shift`` D (0 outside the lag mode), so the loop runs D
+    frames past the input, each clip padded by replicating its own last
+    frame (by index clipping), and trims the emitted stream to [0, total).
+    Chunk k+1 is dispatched before chunk k is fetched (``BehindFetch``),
+    and only the first ``fetch_clips`` clips are fetched: pow2 padding
+    clips are computed, never copied to the host.
 
     ``initial_halos`` ((B, window-1, mh, mw, C) f32) seeds the input
-    history instead of the replicate-pad start (a mid-stream carry; the
-    caller then feeds chunk-aligned segments), and ``return_halos`` also
-    returns the final (B, ...) halos: ``(out, final_halos)``.
-
-    ``device``: where the step runs, for a step that holds no model (an
-    exported program, export.py); by default the model's device.
+    history instead of the replicate-pad start (a mid-stream carry, with
+    the step's carry handed in; the caller then feeds chunk-aligned
+    segments), and ``return_halos`` also returns the final (B, ...) halos:
+    ``(out, final_halos)``; the step's final carry is ``step.carry``.
 
     clips_u8 (B, T_total, H, W, C) uint8 → (fetch_clips, T_total, ...).
     """
-    dev = _model_device(model) if device is None else device
-    b = clips_u8.shape[0]
+    dev, t_chunk, d_lag = step.device, step.cfg.chunk_frames, step.shift
+    b, total = clips_u8.shape[:2]
     k = b if fetch_clips is None else fetch_clips
-    if coverage_out is not None:
-        coverage_out.extend([0] * (k - len(coverage_out)))
     if initial_halos is not None:
         halos = torch.as_tensor(np.asarray(initial_halos, np.float32)
                                 ).to(dev)
     else:
-        halos = torch.stack([initial_halo(cfg, clips_u8[i, 0], dev)
+        halos = torch.stack([initial_halo(step.cfg, clips_u8[i, 0], dev)
                              for i in range(b)])
     fetch = BehindFetch(dev)
     outs, pending = [], None
-    for chunk, n_valid in _padded_chunks(clips_u8, cfg.chunk_frames):
-        res = fn(model, put_frames(chunk, dev), halos)
-        out, halos = res[0], res[1]
+    for start in range(0, total + d_lag, t_chunk):
+        idx = np.clip(np.arange(start, start + t_chunk), 0, total - 1)
+        out, halos, _ = step(put_frames(clips_u8[:, idx], dev), halos)
         if pending is not None:
             outs.append(fetch.finish(pending))
-        pending = fetch.start(out[:k, :n_valid])
+        pending = fetch.start(out[:k, max(0, d_lag - start):
+                                  min(t_chunk, total + d_lag - start)])
     outs.append(fetch.finish(pending))
-    result = np.concatenate(outs, axis=1)
+    result = np.concatenate([o for o in outs if o.shape[1]], axis=1)
     if return_halos:
         return result, halos
     return result
-
-
-def init_lag_carries(cfg: StabilizeConfig, first_frames: np.ndarray,
-                     device) -> tuple:
-    """Fresh per-clip lag-mode carries for a (B, H, W, C) batch of first
-    frames: (frames (B, D, H, W, C) uint8, offsets (B, D, gh, gw, 2),
-    deltas (B, C_len, 4), confidence (B, C_len)), the batched counterpart of
-    ``Stabilizer._init_lag_carry``."""
-    d_lag = cfg.path_smooth_lag
-    gh, gw = cfg.model.grid_size
-    c_len = pathsmooth.lag_carry_len(cfg)
-    b = first_frames.shape[0]
-    first = put_frames(np.asarray(first_frames, np.uint8)[:, None], device)
-    return (first.repeat(1, d_lag, 1, 1, 1),
-            torch.zeros((b, d_lag, gh, gw, 2), device=device),
-            torch.zeros((b, c_len, pathsmooth.STATE_DIM), device=device),
-            torch.full((b, c_len), 1e6, device=device))
-
-
-@torch.inference_mode()
-def drive_chunked_batch_lag(fn, model: motion_cnn.MotionEstimator,
-                            cfg: StabilizeConfig, clips_u8: np.ndarray,
-                            fetch_clips: Optional[int] = None,
-                            coverage_out: Optional[list] = None):
-    """The lag-mode sibling of ``drive_chunked_batch``: emission is shifted
-    by D frames, so the loop runs D frames past the input (each clip padded
-    by replicating its own last frame, by index clipping) and trims the
-    emitted stream to [0, total): ``Stabilizer._stabilize_clip_lag``,
-    batched. ``fn(model, frames, halos, carries)`` returns ``(out,
-    new_halos, new_carries, offsets)`` (``dp._stabilize_chunk_batch_lag``).
-    Whole clips only: the carries hold D raw frames, which segmented
-    callers would have to thread (the serving engine refuses lag carries).
-    """
-    dev = _model_device(model)
-    b, total = clips_u8.shape[:2]
-    k = b if fetch_clips is None else fetch_clips
-    t_chunk = cfg.chunk_frames
-    d_lag = cfg.path_smooth_lag
-    if coverage_out is not None:
-        coverage_out.extend([0] * (k - len(coverage_out)))
-    halos = torch.stack([initial_halo(cfg, clips_u8[i, 0], dev)
-                         for i in range(b)])
-    carries = init_lag_carries(cfg, clips_u8[:, 0], dev)
-    fetch = BehindFetch(dev)
-    outs, pending = [], None
-    base = -d_lag               # global index of the next chunk's out[0]
-    for start in range(0, total + d_lag, t_chunk):
-        idx = np.clip(np.arange(start, start + t_chunk), 0, total - 1)
-        out, halos, carries, _ = fn(model, put_frames(clips_u8[:, idx], dev),
-                                    halos, carries)
-        if pending is not None:
-            outs.append(fetch.finish(pending))
-        pending = fetch.start(out[:k, max(0, -base):min(t_chunk,
-                                                       total - base)])
-        base += t_chunk
-    outs.append(fetch.finish(pending))
-    return np.concatenate([o for o in outs if o.shape[1]], axis=1)
 
 
 def _load_record(path: str) -> Optional[dict]:
@@ -460,68 +517,26 @@ class Stabilizer:
         # A CUDA gather reads any in-range address, so no chunk ever falls
         # back to a slower path; kept for the reference's reporting surface.
         self.coverage_fallbacks = 0
-        # Path-smoothing EMA state (pipeline/pathsmooth.py), reset at every
-        # stream start by begin_stream(). Every loop calls _chunk strictly
-        # in chunk order, so an instance-held state is safe.
-        self._smooth_state = None
+        # Every loop calls _chunk strictly in chunk order, so the step can
+        # hold the stream's smoothing carry.
+        self.step = ChunkStep(cfg, self.model, device=self.device)
 
-    def begin_stream(self, smooth_state=None) -> None:
-        """Reset per-stream state; ``smooth_state`` restores a resumed
-        stream's carried path-smoothing state. A (2,) or (3,) state of an
-        older record is zero-padded: the missing components start as a
-        fresh EMA."""
-        if self.cfg.path_smooth <= 0:
-            self._smooth_state = None
-        elif smooth_state is None:
-            self._smooth_state = pathsmooth.initial_state(self.device)
-        else:
-            s = np.asarray(smooth_state, np.float32).reshape(-1)
-            s = np.concatenate([s, np.zeros(pathsmooth.STATE_DIM - len(s),
-                                            np.float32)])
-            self._smooth_state = torch.from_numpy(s).to(self.device)
+    def begin_stream(self, rec: Optional[dict] = None,
+                     frames: Optional[torch.Tensor] = None) -> None:
+        """Reset per-stream state, or restore a resumed stream's smoothing
+        carry from its record (``ChunkStep.restore``)."""
+        self.step.restore(rec, frames)
 
     @torch.inference_mode()
     def _chunk(self, dev_chunk: torch.Tensor, halo: torch.Tensor):
-        """One device step: the one dispatch point of every causal chunk
-        loop (clip, stream, overlapped stream, online push)."""
+        """One device step: the one dispatch point of every chunk loop
+        (clip, stream, overlapped stream, online push)."""
         self.chunks_seen += 1
-        if self.cfg.path_smooth > 0:
-            if self._smooth_state is None:      # direct _chunk callers
-                self.begin_stream()
-            out, halo, self._smooth_state, offs = \
-                stabilize_chunk_smooth_impl(self.cfg, self.model, dev_chunk,
-                                            halo, self._smooth_state)
-            return out, halo, offs
-        return stabilize_chunk_impl(self.cfg, self.model, dev_chunk, halo)
-
-    @torch.inference_mode()
-    def _lag_chunk(self, dev_chunk: torch.Tensor, halo: torch.Tensor,
-                   carry: tuple):
-        """One fixed-lag device step: (emitted, new halo, new carry)."""
-        self.chunks_seen += 1
-        res = stabilize_chunk_lag_impl(self.cfg, self.model, dev_chunk,
-                                       halo, *carry)
-        return res[0], res[1], res[2:6]
+        return self.step(dev_chunk, halo)
 
     @torch.inference_mode()
     def _initial_halo(self, first_frame_u8: np.ndarray) -> torch.Tensor:
         return initial_halo(self.cfg, first_frame_u8, self.device)
-
-    @torch.inference_mode()
-    def _init_lag_carry(self, first_frame_u8: np.ndarray) -> tuple:
-        """Fresh lag-mode carries: D replicated first frames (their
-        emissions are dropped), zero offsets, and a zero-delta measurement
-        window with a huge confidence ('healthy, no motion', as the causal
-        mode's replicate-pad halo)."""
-        cfg, dev = self.cfg, self.device
-        d_lag = cfg.path_smooth_lag
-        gh, gw = cfg.model.grid_size
-        c_len = pathsmooth.lag_carry_len(cfg)
-        first = put_frames(np.asarray(first_frame_u8, np.uint8)[None], dev)
-        return (first.repeat(d_lag, 1, 1, 1),
-                torch.zeros((d_lag, gh, gw, 2), device=dev),
-                torch.zeros((c_len, pathsmooth.STATE_DIM), device=dev),
-                torch.full((c_len,), 1e6, device=dev))
 
     def _pad(self, chunk: np.ndarray) -> np.ndarray:
         t_chunk = self.cfg.chunk_frames
@@ -530,86 +545,55 @@ class Stabilizer:
             chunk = np.concatenate([chunk, pad], axis=0)
         return chunk
 
-    def _stabilize_clip_lag(self, frames_u8: np.ndarray) -> np.ndarray:
-        """Clip loop of the fixed-lag mode: emission is shifted by D
-        frames, so the loop runs D frames past the input (replicate pad)
-        and trims the emitted stream to [0, total)."""
-        d_lag = self.cfg.path_smooth_lag
-        t_chunk = self.cfg.chunk_frames
-        total = frames_u8.shape[0]
-        halo = self._initial_halo(frames_u8[0])
-        carry = self._init_lag_carry(frames_u8[0])
-        outs = []
-        emitted = -d_lag        # global index of out[0] for the next chunk
-        for start in range(0, total + d_lag, t_chunk):
-            idx = np.clip(np.arange(start, start + t_chunk), 0, total - 1)
-            out, halo, carry = self._lag_chunk(
-                put_frames(frames_u8[idx], self.device), halo, carry)
-            lo = max(0, -emitted)
-            hi = min(t_chunk, total - emitted)
-            if hi > lo:
-                outs.append(fetch_frames(out[lo:hi]))
-            emitted += t_chunk
-        return np.concatenate(outs, axis=0)
-
     def stabilize_clip(self, frames_u8: np.ndarray) -> np.ndarray:
-        """frames_u8 (T, H, W, C) uint8 → stabilized (T, H, W, C) uint8."""
+        """frames_u8 (T, H, W, C) uint8 → stabilized (T, H, W, C) uint8.
+
+        Emission is shifted by D = cfg.path_smooth_lag frames, so the loop
+        runs D frames past the input (replicate pad) and trims the emitted
+        stream to [0, total)."""
         total = frames_u8.shape[0]
         if total == 0:
             return frames_u8
-        if self.cfg.path_smooth_lag > 0:
-            return self._stabilize_clip_lag(frames_u8)
+        d_lag, t_chunk = self.cfg.path_smooth_lag, self.cfg.chunk_frames
         self.begin_stream()
         halo = self._initial_halo(frames_u8[0])
-        t_chunk = self.cfg.chunk_frames
         outs = []
-        for start in range(0, total, t_chunk):
-            chunk = frames_u8[start:start + t_chunk]
-            n_valid = chunk.shape[0]
+        for start in range(0, total + d_lag, t_chunk):
+            idx = np.clip(np.arange(start, start + t_chunk), 0, total - 1)
             out, halo, _ = self._chunk(
-                put_frames(self._pad(chunk), self.device), halo)
-            outs.append(fetch_frames(out[:n_valid]))
+                put_frames(frames_u8[idx], self.device), halo)
+            lo = max(0, d_lag - start)
+            hi = min(t_chunk, total + d_lag - start)
+            if hi > lo:
+                outs.append(fetch_frames(out[lo:hi]))
         return np.concatenate(outs, axis=0)
 
     def _sync(self, out: torch.Tensor) -> None:
         if out.is_cuda:
             torch.cuda.synchronize(out.device)
 
-    def _stabilize_stream_lag(self, reader, writer, timer: StageTimer,
-                              resume_dir: Optional[str]) -> int:
-        """Stream loop of the fixed-lag mode (emission shifted by D).
+    def _resume(self, rec: dict, reader, writer):
+        """Restore a stream from its record: refuse a record of another
+        smoothing mode, skip the frames written, seek the writer, restore
+        the carries. Returns (frames written, halo, the last input frame
+        read, the stream's length if known).
 
-        After every chunk the input position is the emission base + D and
-        the frames flushed are max(0, base). Resume records hold the small
-        carries (offset grids, measurement window) and ``lag_real``: how
-        many of the D carried raw frames are real input (< D only when the
-        record was written in the end-of-stream drain region). The raw
-        frames are read again from the input on resume.
+        A lag record's ``lag_real`` says how many of the D carried raw
+        frames are real input (< D only when it was written in the
+        end-of-stream drain region); they are read again from the input.
         """
-        cfg, dev = self.cfg, self.device
-        d_lag = cfg.path_smooth_lag
-        t_chunk = cfg.chunk_frames
-        written = 0
-        halo = carry = last_host = total = None
-        base = -d_lag
-        rec = None
-        if resume_dir:
-            os.makedirs(resume_dir, exist_ok=True)
-            rec = _load_record(os.path.join(resume_dir, "resume_state.npz"))
-        if rec is not None and int(rec["frames_written"]) > 0:
-            written = int(rec["frames_written"])
-            if "lag_offsets" not in rec:
-                raise ValueError(
-                    "resume record was written without the lag smoother's "
-                    "carries but cfg.path_smooth_lag > 0; restart the job "
-                    "(or point --resume-dir elsewhere)")
-            lag_real = int(rec["lag_real"])
-            if lag_real == 0:
-                return written                  # job already complete
-            skipped = reader.skip(written)
-            if skipped != written:
-                raise ValueError(f"resume record says {written} frames but "
-                                 f"input only has {skipped} to skip")
+        d_lag = self.cfg.path_smooth_lag
+        written = int(rec["frames_written"])
+        self.step.check_record(rec)
+        lag_real = int(rec["lag_real"]) if d_lag else 0
+        if d_lag and lag_real == 0:
+            return written, None, None, written     # job already complete
+        skipped = reader.skip(written)
+        if skipped != written:
+            raise ValueError(f"resume record says {written} frames but "
+                             f"input only has {skipped} to skip")
+        frames = last_host = None
+        if d_lag:
             cf = reader.read_batch(lag_real)
             if cf.shape[0] != lag_real:
                 raise ValueError(
@@ -619,93 +603,13 @@ class Stabilizer:
             if lag_real < d_lag:
                 cf = np.concatenate(
                     [cf, np.repeat(cf[-1:], d_lag - lag_real, axis=0)])
-            writer.seek(written)
-            halo = torch.from_numpy(rec["halo"]).to(dev)
-            carry = (put_frames(cf, dev),
-                     torch.from_numpy(rec["lag_offsets"]).to(dev),
-                     torch.from_numpy(rec["lag_d"]).to(dev),
-                     torch.from_numpy(rec["lag_c"]).to(dev))
-            last_host = cf[-1:]
-            base = written
-            if lag_real < d_lag:
-                # Written in the drain region: the stream's end is known.
-                total = written + lag_real
-        while total is None or base < total:
-            n_in = 0
-            if total is None:
-                with timer.stage("decode"):
-                    chunk = reader.read_batch(t_chunk)
-                n_in = chunk.shape[0]
-            if n_in:
-                last_host = chunk[-1:]
-                if halo is None:
-                    halo = self._initial_halo(chunk[0])
-                    carry = self._init_lag_carry(chunk[0])
-            if n_in < t_chunk:
-                if total is None:
-                    total = base + d_lag + n_in     # input position + n_in
-                if last_host is None or base >= total:
-                    break                           # empty or drained
-                pad = np.repeat(last_host, t_chunk - n_in, axis=0)
-                chunk = np.concatenate([chunk, pad]) if n_in else pad
-            with timer.stage("h2d"):
-                dev_chunk = put_frames(chunk, dev)
-            with timer.stage("compute"):
-                out, halo, carry = self._lag_chunk(dev_chunk, halo, carry)
-                self._sync(out)
-            lo = max(0, -base)
-            hi = t_chunk if total is None else min(t_chunk, total - base)
-            if hi > lo:
-                with timer.stage("d2h"):
-                    host_out = fetch_frames(out[lo:hi])
-                with timer.stage("encode"):
-                    writer.write_batch(host_out)
-                written += hi - lo
-            base += t_chunk
-            if resume_dir and written > 0:
-                lag_real = (d_lag if total is None
-                            else max(0, min(d_lag, total - base)))
-                _save_record(resume_dir, halo=halo.cpu().numpy(),
-                             frames_written=written,
-                             lag_offsets=carry[1].cpu().numpy(),
-                             lag_d=carry[2].cpu().numpy(),
-                             lag_c=carry[3].cpu().numpy(),
-                             lag_real=lag_real)
-        return written
-
-    def _resume_causal(self, rec: dict, reader, writer):
-        """Restore a causal stream from its record: skip the frames
-        written, seek the writer, restore the smoothing state. Returns
-        (frames written, halo)."""
-        written = int(rec["frames_written"])
-        smooth = rec.get("smooth_state")
-        if "lag_offsets" in rec:
-            # A lag record resumed without the lag would shift every later
-            # frame by D.
-            raise ValueError(
-                "resume record was written by a --path-smooth-lag run but "
-                "cfg.path_smooth_lag == 0; resume with the original lag "
-                "setting")
-        if self.cfg.path_smooth > 0 and smooth is None:
-            # Resuming would jump the camera path at the resume point.
-            raise ValueError(
-                "resume record was written without path smoothing but "
-                "cfg.path_smooth > 0; restart the job (or point "
-                "--resume-dir elsewhere)")
-        if self.cfg.path_smooth == 0 and smooth is not None:
-            # Dropping the state would switch the output from smoothed to
-            # unsmoothed mid-stream.
-            raise ValueError(
-                "resume record carries a path-smoothing state but "
-                "cfg.path_smooth == 0; resume with the original "
-                "--path-smooth setting (or restart the job elsewhere)")
-        skipped = reader.skip(written)
-        if skipped != written:
-            raise ValueError(f"resume record says {written} frames but "
-                             f"input only has {skipped} to skip")
+            frames, last_host = put_frames(cf, self.device), cf[-1:]
         writer.seek(written)
-        self.begin_stream(smooth_state=smooth)
-        return written, torch.from_numpy(rec["halo"]).to(self.device)
+        self.begin_stream(rec, frames)
+        # Written in the drain region: the stream's end is known.
+        total = written + lag_real if lag_real < d_lag else None
+        return (written, torch.from_numpy(rec["halo"]).to(self.device),
+                last_host, total)
 
     def stabilize_stream(self, reader, writer,
                          timer: Optional[StageTimer] = None,
@@ -715,6 +619,11 @@ class Stabilizer:
         ``reader`` needs ``read_batch(n)`` and ``skip(n)``, ``writer``
         ``write_batch(frames)`` and ``seek(i)`` (utils/video_io.py). The
         overlapped stream is pipeline/overlap.py.
+
+        Emission is shifted by D = cfg.path_smooth_lag frames: after every
+        chunk the input position is the emission base + D, the frames
+        flushed are max(0, base), and past the input's end the loop feeds
+        replicate-pad chunks until the tail drains.
 
         ``resume_dir``: if given, one resume record (frames written, the
         streaming halo and the smoothing carries, under the JAX package's
@@ -727,41 +636,54 @@ class Stabilizer:
         chunk's device time.
         """
         timer = timer or StageTimer()
-        if self.cfg.path_smooth_lag > 0:
-            return self._stabilize_stream_lag(reader, writer, timer,
-                                              resume_dir)
-        t_chunk = self.cfg.chunk_frames
-        halo = None
+        d_lag, t_chunk = self.cfg.path_smooth_lag, self.cfg.chunk_frames
         written = 0
+        halo = last_host = total = None
+        base = -d_lag           # global index of the next chunk's out[0]
         self.begin_stream()
         if resume_dir:
             os.makedirs(resume_dir, exist_ok=True)
             rec = _load_record(os.path.join(resume_dir, "resume_state.npz"))
             if rec is not None and int(rec["frames_written"]) > 0:
-                written, halo = self._resume_causal(rec, reader, writer)
-        while True:
-            with timer.stage("decode"):
-                chunk = reader.read_batch(t_chunk)
-            n_valid = chunk.shape[0]
-            if n_valid == 0:
-                break
-            if halo is None:
-                halo = self._initial_halo(chunk[0])
+                written, halo, last_host, total = self._resume(rec, reader,
+                                                               writer)
+                base = written
+        while total is None or base < total:
+            n_in = 0
+            if total is None:
+                with timer.stage("decode"):
+                    chunk = reader.read_batch(t_chunk)
+                n_in = chunk.shape[0]
+            if n_in:
+                last_host = chunk[-1:]
+                if halo is None:
+                    halo = self._initial_halo(chunk[0])
+            if n_in < t_chunk:
+                if total is None:
+                    total = base + d_lag + n_in     # input position + n_in
+                if last_host is None or base >= total:
+                    break                           # empty or drained
+                pad = np.repeat(last_host, t_chunk - n_in, axis=0)
+                chunk = np.concatenate([chunk, pad]) if n_in else pad
             with timer.stage("h2d"):
-                dev_chunk = put_frames(self._pad(chunk), self.device)
+                dev_chunk = put_frames(chunk, self.device)
             with timer.stage("compute"):
                 out, halo, _ = self._chunk(dev_chunk, halo)
                 self._sync(out)
-            with timer.stage("d2h"):
-                host_out = fetch_frames(out[:n_valid])
-            with timer.stage("encode"):
-                writer.write_batch(host_out)
-            written += n_valid
-            if resume_dir:
-                extra = ({"smooth_state": self._smooth_state.cpu().numpy()}
-                         if self.cfg.path_smooth > 0 else {})
+            lo = max(0, -base)
+            hi = t_chunk if total is None else min(t_chunk, total - base)
+            if hi > lo:
+                with timer.stage("d2h"):
+                    host_out = fetch_frames(out[lo:hi])
+                with timer.stage("encode"):
+                    writer.write_batch(host_out)
+                written += hi - lo
+            base += t_chunk
+            if resume_dir and written > 0:
+                real = ({"lag_real": d_lag if total is None
+                         else max(0, min(d_lag, total - base))}
+                        if d_lag else {})
                 _save_record(resume_dir, halo=halo.cpu().numpy(),
-                             frames_written=written, **extra)
-            if n_valid < t_chunk:
-                break
+                             frames_written=written, **self.step.record(),
+                             **real)
         return written

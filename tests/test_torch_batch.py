@@ -1,6 +1,6 @@
-"""The port's batch surfaces on the CPU: the batched chunk steps
-(parallel/dp.py), the clip-batch drivers, ``BatchStabilizer``,
-``stabilize_multi`` and the batched auto-crop scan.
+"""The port's batch surfaces on the CPU: the batched chunk step
+(pipeline/stabilize.py's ``ChunkStep``), the clip-batch driver,
+``BatchStabilizer``, ``stabilize_multi`` and the batched auto-crop scan.
 
 Every batched output is byte-identical to the port's single-clip
 ``Stabilizer`` on the same clip, and within 1 LSB of the JAX package's
@@ -24,8 +24,7 @@ from dvsg_tpu.utils import checkpoint as jckpt
 from dvsg_tpu_torch.config import ModelConfig, StabilizeConfig
 from dvsg_tpu_torch.models import motion_cnn
 from dvsg_tpu_torch.ops import grouped
-from dvsg_tpu_torch.parallel import dp
-from dvsg_tpu_torch.pipeline import autocrop, pathsmooth
+from dvsg_tpu_torch.pipeline import autocrop
 from dvsg_tpu_torch.pipeline import multiclip as mc
 from dvsg_tpu_torch.pipeline import stabilize as st
 from dvsg_tpu_torch.pipeline.batching import BatchStabilizer
@@ -85,8 +84,9 @@ def _lsb(a, b):
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_batched_step_equals_single_steps(params, mode):
-    """Every output of one batched step (frames, halos, smoothing state or
-    lag carries, offsets) equals the single-clip step's, clip by clip."""
+    """Every output of one batched step (frames, halos, offsets, and the
+    smoothing state or lag carries it holds) equals the single-clip
+    step's, clip by clip."""
     cfg = CFG.replace(**MODES[mode])
     rng = np.random.default_rng(1)
     frames = torch.from_numpy(np.stack([_clip(4, key=k) for k in (1, 2, 3)]))
@@ -96,32 +96,23 @@ def test_batched_step_equals_single_steps(params, mode):
                              for f in frames])
         halos = halos + torch.from_numpy(
             rng.normal(0, 0.01, halos.shape).astype(np.float32))
-        if mode == "lag":
-            carries = st.init_lag_carries(cfg, frames[:, 0].numpy(), "cpu")
-            out, h, c, offs = dp._stabilize_chunk_batch_lag(
-                cfg, model, frames, halos, carries)
-            batched = [out, h, *c, offs]
-            singles = [st.stabilize_chunk_lag_impl(
-                cfg, model, frames[i], halos[i], *(x[i] for x in carries))
-                for i in range(3)]
-        elif mode == "causal":
+        step = st.ChunkStep(cfg, model, batched=True)
+        singles = [st.ChunkStep(cfg, model) for _ in range(3)]
+        if mode == "causal":
             states = torch.from_numpy(
                 rng.normal(0, 0.01, (3, 4)).astype(np.float32))
-            batched = dp._stabilize_chunk_batch_smooth(cfg, model, frames,
-                                                       halos, states)
-            singles = [st.stabilize_chunk_smooth_impl(
-                cfg, model, frames[i], halos[i], states[i])
-                for i in range(3)]
-        else:
-            batched = dp._stabilize_chunk_batch(cfg, model, frames, halos)
-            singles = [st.stabilize_chunk_impl(cfg, model, frames[i],
-                                               halos[i]) for i in range(3)]
+            step.carry = (states,)
+            for i, single in enumerate(singles):
+                single.carry = (states[i],)
+        batched = [*step(frames, halos), *step.carry]
+        singles = [[*single(frames[i], halos[i]), *single.carry]
+                   for i, single in enumerate(singles)]
     assert len(batched) == len(singles[0])
     for j, b in enumerate(batched):
         for i in range(3):
             assert torch.equal(b[i], singles[i][j]), (j, i)
     with pytest.raises(ValueError, match="B, T, H, W, C"):
-        dp._stabilize_chunk_batch(cfg, model, frames[0], halos[0])
+        st.ChunkStep(cfg, model, batched=True)(frames[0], halos[0])
 
 
 def test_in_groups_makes_fixed_size_calls():
@@ -145,26 +136,15 @@ def test_in_groups_makes_fixed_size_calls():
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_drivers_equal_single_clips(params, mode):
-    """The clip-batch drivers on a pow2-padded batch (3 real clips + one
-    pad slot, fetch_clips=3) give each clip's single-clip output."""
+    """The clip-batch driver on a pow2-padded batch (3 real clips + one
+    pad slot, fetch_clips=3) gives each clip's single-clip output."""
     cfg = CFG.replace(**MODES[mode])
     clips = np.stack([_clip(10, key=k) for k in (4, 5, 6)])
     batch = np.concatenate([clips, clips[:1]])
     model = st.build_model(MCFG, params, torch.device("cpu"))
-    cov = []
-    if mode == "lag":
-        out = st.drive_chunked_batch_lag(
-            lambda m, f, h, c: dp._stabilize_chunk_batch_lag(cfg, m, f, h, c),
-            model, cfg, batch, fetch_clips=3, coverage_out=cov)
-    else:
-        step = lambda m, f, h: dp._stabilize_chunk_batch(cfg, m, f, h)
-        if mode == "causal":
-            step = pathsmooth.thread_batch_state(
-                lambda m, f, h, s: dp._stabilize_chunk_batch_smooth(
-                    cfg, m, f, h, s), 4, "cpu")
-        out = st.drive_chunked_batch(step, model, cfg, batch, fetch_clips=3,
-                                     coverage_out=cov)
-    assert out.shape == clips.shape and cov == [0, 0, 0]
+    out = st.drive_chunked_batch(st.ChunkStep(cfg, model, batched=True),
+                                 batch, fetch_clips=3)
+    assert out.shape == clips.shape
     for i in range(3):
         np.testing.assert_array_equal(out[i], _single(cfg, params, clips[i]))
 
@@ -174,11 +154,12 @@ def test_driver_halo_carry_equals_one_pass(params):
     the first's returned halos, equals one pass."""
     clips = np.stack([_clip(12, key=k) for k in (7, 8)])
     model = st.build_model(MCFG, params, torch.device("cpu"))
-    step = lambda m, f, h: dp._stabilize_chunk_batch(CFG, m, f, h)
-    whole = st.drive_chunked_batch(step, model, CFG, clips)
-    first, halos = st.drive_chunked_batch(step, model, CFG, clips[:, :8],
+    whole = st.drive_chunked_batch(st.ChunkStep(CFG, model, batched=True),
+                                   clips)
+    step = st.ChunkStep(CFG, model, batched=True)
+    first, halos = st.drive_chunked_batch(step, clips[:, :8],
                                           return_halos=True)
-    second = st.drive_chunked_batch(step, model, CFG, clips[:, 8:],
+    second = st.drive_chunked_batch(step, clips[:, 8:],
                                     initial_halos=halos.numpy())
     np.testing.assert_array_equal(np.concatenate([first, second], axis=1),
                                   whole)

@@ -48,7 +48,6 @@ from dvsg_tpu.utils import checkpoint as jckpt
 from dvsg_tpu_torch import export as texport
 from dvsg_tpu_torch.config import ModelConfig, StabilizeConfig, TrainConfig
 from dvsg_tpu_torch.models import motion_cnn as tcnn
-from dvsg_tpu_torch.parallel import dp
 from dvsg_tpu_torch.pipeline import stabilize as tstab
 from dvsg_tpu_torch.train import loop as tloop
 from dvsg_tpu_torch.utils import checkpoint as tckpt
@@ -580,8 +579,8 @@ def test_bf16_is_byte_identical_across_chunk_and_batch(arch):
     want = stab.stabilize_clip(clips[0])
     t8 = tstab.Stabilizer(cfg.replace(chunk_frames=8), sd, device="cpu")
     np.testing.assert_array_equal(t8.stabilize_clip(clips[0]), want)
-    got = tstab.drive_chunked_batch(dp.batch_step(cfg), stab.model, cfg,
-                                    clips)
+    got = tstab.drive_chunked_batch(
+        tstab.ChunkStep(cfg, stab.model, batched=True), clips)
     np.testing.assert_array_equal(got[0], want)
 
 

@@ -312,7 +312,6 @@ def test_smoothed_chunk_steps_on_the_card_match_the_cpu(dev, lag):
     """The smoothed and lag clips on the card within 1 LSB of the CPU
     path, each chunk through the packed offsets kernel; one chunk step
     again under sync debug mode "error": no host synchronization."""
-    from dvsg_tpu_torch.pipeline import pathsmooth
     from dvsg_tpu_torch.pipeline import stabilize as stab_lib
     cfg, params, frames = _smooth_setup(path_smooth_lag=lag)
     cpu = stab_lib.Stabilizer(cfg, params, device="cpu")
@@ -325,19 +324,12 @@ def test_smoothed_chunk_steps_on_the_card_match_the_cpu(dev, lag):
     with torch.inference_mode():
         chunk = stab_lib.put_frames(frames[:4], dev)
         halo = card._initial_halo(frames[0])
-        if lag:
-            carry = card._init_lag_carry(frames[0])
-            step = lambda: stab_lib.stabilize_chunk_lag_impl(
-                cfg, card.model, chunk, halo, *carry)
-        else:
-            state = pathsmooth.initial_state(dev)
-            step = lambda: stab_lib.stabilize_chunk_smooth_impl(
-                cfg, card.model, chunk, halo, state)
-        step()
+        step = stab_lib.ChunkStep(cfg, card.model)
+        step(chunk, halo)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            step()
+            step(chunk, halo)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
@@ -414,8 +406,6 @@ def test_batch_size_invariance_on_the_card(dev, mode):
     """One clip in batches of 1, 2, 4 and 8 gives the single-clip bytes,
     with one launch of the offsets kernel per batched chunk."""
     from dvsg_tpu_torch.config import StabilizeConfig
-    from dvsg_tpu_torch.parallel import dp
-    from dvsg_tpu_torch.pipeline import pathsmooth
     from dvsg_tpu_torch.pipeline import stabilize as st
     params, mcfg, clips = _fast_setup()
     cfg = StabilizeConfig(model=mcfg, chunk_frames=8, **BATCH_MODES[mode])
@@ -425,17 +415,8 @@ def test_batch_size_invariance_on_the_card(dev, mode):
     chunks = -(-(clips.shape[1] + lag) // cfg.chunk_frames)
     for b in (1, 2, 4, 8):
         before = warp_wide.LAUNCHES
-        if lag:
-            out = st.drive_chunked_batch_lag(
-                lambda m, f, h, c: dp._stabilize_chunk_batch_lag(
-                    cfg, m, f, h, c), model, cfg, clips[:b])
-        else:
-            step = lambda m, f, h: dp._stabilize_chunk_batch(cfg, m, f, h)
-            if cfg.path_smooth:
-                step = pathsmooth.thread_batch_state(
-                    lambda m, f, h, s: dp._stabilize_chunk_batch_smooth(
-                        cfg, m, f, h, s), b, dev)
-            out = st.drive_chunked_batch(step, model, cfg, clips[:b])
+        out = st.drive_chunked_batch(st.ChunkStep(cfg, model, batched=True),
+                                     clips[:b])
         assert warp_wide.LAUNCHES == before + chunks
         np.testing.assert_array_equal(out[0], want, err_msg=f"B={b}")
 
@@ -697,7 +678,6 @@ def test_variant_on_the_card_is_invariant_and_near_the_cpu(dev, variant):
     kernel a chunk; f32 within 1 LSB of the CPU path, bf16 within 2 (the
     card's bf16 convolutions sum in another order)."""
     from dvsg_tpu_torch.config import StabilizeConfig
-    from dvsg_tpu_torch.parallel import dp
     from dvsg_tpu_torch.pipeline import stabilize as st
     params, mcfg, clips = _fast_setup(n_clips=4, frames=24)
     mcfg, params = _variant(mcfg, variant, params)
@@ -710,7 +690,7 @@ def test_variant_on_the_card_is_invariant_and_near_the_cpu(dev, variant):
     np.testing.assert_array_equal(t16, want)
     model = st.build_model(mcfg, params, dev)
     for b in (1, 4):
-        out = st.drive_chunked_batch(dp.batch_step(cfg), model, cfg,
+        out = st.drive_chunked_batch(st.ChunkStep(cfg, model, batched=True),
                                      clips[:b])
         np.testing.assert_array_equal(out[0], want, err_msg=f"B={b}")
     cpu = st.Stabilizer(cfg, params, device="cpu").stabilize_clip(clips[0])

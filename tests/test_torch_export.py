@@ -21,7 +21,7 @@ from dvsg_tpu_torch import cli
 from dvsg_tpu_torch import export as export_lib
 from dvsg_tpu_torch.config import StabilizeConfig
 from dvsg_tpu_torch.ops import resize as resize_ops
-from dvsg_tpu_torch.parallel import dp, dryrun
+from dvsg_tpu_torch.parallel import dryrun
 from dvsg_tpu_torch.pipeline import pathsmooth
 from dvsg_tpu_torch.pipeline import stabilize as st
 from dvsg_tpu_torch.train import synthetic
@@ -127,10 +127,8 @@ def test_batch_artifact_matches_live_batched_step(artifacts, mode):
     loaded = export_lib.load_exported(artifacts[f"{mode}_batch"])
     assert loaded.batched and loaded.n_clips == 3
     model = st.build_model(MCFG, PARAMS, torch.device("cpu"))
-    step = dp.batch_step(cfg)
-    if mode == "causal":
-        step = pathsmooth.thread_batch_state(step, 3, torch.device("cpu"))
-    want = st.drive_chunked_batch(step, model, cfg, clips)
+    want = st.drive_chunked_batch(st.ChunkStep(cfg, model, batched=True),
+                                  clips)
     np.testing.assert_array_equal(loaded.stabilize_clips(clips), want)
     for i, c in enumerate(clips):               # and each clip alone
         np.testing.assert_array_equal(want[i], _live(cfg, c))
@@ -296,7 +294,7 @@ def test_live_step_after_an_export_without_warm_up(frames):
         want = st.stabilize_chunk_smooth_impl(cfg, model, chunk, halo, state)
     resize_ops._matrix_on.cache_clear()
     pathsmooth._on.cache_clear()
-    prog = export_lib._ChunkProgram(cfg, model, batched=False)
+    prog = export_lib._ChunkProgram(cfg, model)
     torch.export.export(prog, (chunk, halo, state))
     with torch.inference_mode():
         got = st.stabilize_chunk_smooth_impl(cfg, model, chunk, halo, state)
@@ -350,7 +348,7 @@ def test_export_for_the_card_without_one(card_artifacts, frames, mode):
     got = move_to_device_pass(program, "cpu").module()(*args)
     model = st.build_model(MCFG, PARAMS, torch.device("cpu"))
     with torch.inference_mode():
-        want = export_lib._ChunkProgram(cfg, model, batched=False)(*args)
+        want = export_lib._ChunkProgram(cfg, model)(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

@@ -219,14 +219,6 @@ def test_sharded_refusals(sharded):
     assert "batch_size 6 must divide over 4 devices" in sharded[0]["dp_batch"]
 
 
-def test_sharded_chunk_fn_is_the_batched_step():
-    m = mesh_lib.make_mesh(device="cpu")
-    for mode, kw in MODES.items():
-        cfg = CFG.replace(**kw)
-        assert dp.make_sharded_chunk_fn(cfg, m).func \
-            is dp.batch_step(cfg).func
-
-
 def test_dp_step_matches_one_process(sharded, train_setup, monkeypatch):
     """Two steps over 2 and 4 ranks against loop.train_step on the same
     draws."""

@@ -34,6 +34,7 @@ from dvsg_tpu_torch.config import ModelConfig, StabilizeConfig
 from dvsg_tpu_torch.models import motion_cnn
 from dvsg_tpu_torch.ops import resize as resize_ops
 from dvsg_tpu_torch.pipeline import pathsmooth as ps
+from dvsg_tpu_torch.pipeline import stabilize as tstab
 from dvsg_tpu_torch.pipeline.stabilize import Stabilizer
 from dvsg_tpu_torch.train import synthetic
 from dvsg_tpu_torch.utils.checkpoint import load_npz
@@ -541,10 +542,44 @@ class TestStream:
         """A (2,) state of an older record starts rotation and scale as a
         fresh EMA."""
         stab = Stabilizer(CFG, params, device="cpu")
-        stab.begin_stream(smooth_state=np.array([0.01, -0.02], np.float32))
+        stab.begin_stream(
+            {"smooth_state": np.array([0.01, -0.02], np.float32)})
         np.testing.assert_array_equal(
-            stab._smooth_state.numpy(),
+            stab.step.record()["smooth_state"],
             np.array([0.01, -0.02, 0.0, 0.0], np.float32))
+
+    @pytest.mark.parametrize("cfg", [CFG.replace(path_smooth=0), CFG,
+                                     LAG_CFG],
+                             ids=["plain", "causal", "lag"])
+    def test_clip_stream_and_batch_loops_give_the_same_bytes(
+            self, params, tmp_path, cfg):
+        """The one clip, stream and batch loop over the one step: on a clip
+        that is not a multiple of T and on one shorter than D, the stream
+        (cut after its first write and resumed from the record at that
+        chunk boundary, or, where the clip takes one write, resumed after
+        its end) and a one-clip batch give the clip's bytes."""
+        for n in (10, 3):
+            frames = _clip(n, key=n)
+            stab = Stabilizer(cfg, params, device="cpu")
+            want = stab.stabilize_clip(frames)
+            assert want.shape == frames.shape
+            batch = tstab.drive_chunked_batch(
+                tstab.ChunkStep(cfg, stab.model, batched=True), frames[None])
+            np.testing.assert_array_equal(batch[0], want)
+            rdir = str(tmp_path / f"r{n}")
+            if n == 10:
+                w = _interrupted(stab, frames, rdir, 1)
+                w.fail_at = None
+            else:
+                w = _Writer(n, frames.shape[1:])
+                assert stab.stabilize_stream(_Reader(frames), w,
+                                             resume_dir=rdir) == n
+            with np.load(os.path.join(rdir, "resume_state.npz")) as z:
+                assert int(z["frames_written"]) == min(n, 4)
+            again = Stabilizer(cfg, params, device="cpu")
+            assert again.stabilize_stream(_Reader(frames), w,
+                                          resume_dir=rdir) == n
+            np.testing.assert_array_equal(w.frames, want)
 
 
 class TestConfig:

@@ -30,7 +30,7 @@ from dvsg_tpu.utils import checkpoint as jckpt
 from dvsg_tpu_torch import export as texport
 from dvsg_tpu_torch.config import ModelConfig, StabilizeConfig, TrainConfig
 from dvsg_tpu_torch.models import motion_cnn as tcnn
-from dvsg_tpu_torch.parallel import dp, mesh as tmesh
+from dvsg_tpu_torch.parallel import mesh as tmesh
 from dvsg_tpu_torch.parallel.temporal import TemporalShardedStabilizer
 from dvsg_tpu_torch.pipeline import stabilize as tstab
 from dvsg_tpu_torch.pipeline.multiclip import stabilize_multi
@@ -247,8 +247,8 @@ def test_batched_multiclip_temporal_and_export_equal_the_clip(
     clips = np.stack([clip, clip[::-1].copy()])
     stab = tstab.Stabilizer(cfg, sd, device="cpu")
     want = [stab.stabilize_clip(c) for c in clips]
-    got = tstab.drive_chunked_batch(dp.batch_step(cfg), stab.model, cfg,
-                                    clips)
+    got = tstab.drive_chunked_batch(
+        tstab.ChunkStep(cfg, stab.model, batched=True), clips)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     writers = [_Writer(c.shape) for c in clips]
