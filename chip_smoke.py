@@ -63,7 +63,10 @@ on failure:
    lengths; the bf16 GELU kernels at the quality stem's training shape,
    byte-equal to the op chain there (both outputs, bf16, f32 and
    channels-last cotangents), timed beside the op chain and ``F.gelu``'s
-   tanh form (yardstick only);
+   tanh form (yardstick only); the bf16 GroupNorm kernels at the quality
+   level-0 training shape, the forward within one bf16 step of the op
+   chain there, both timed beside the chain and aten's ``group_norm``
+   (yardstick only);
 8. batch and serve, both presets, 1280x720: four seeded clips of 48, 40,
    33 and 17 frames from four threads at once through ``BatchStabilizer``
    (plain, causal, lag; one group), and through ``stabilize_multi``
@@ -112,8 +115,9 @@ on failure:
    one launch a chunk, within 1 LSB of the CPU path, and an exported
    stacked artifact byte-equal to the live path; (d) bf16 training at both
    presets' widths, batch 8: steps/s, finite losses, each GELU kernel
-   launched once a GELU call of every step, the kernel step against the
-   plain step (plain warps and plain GELU chain); (e) ``stabilize --profile-dir``'s trace and
+   launched once a GELU call and each GroupNorm kernel twice a ResBlock
+   of every step, the kernel step against the plain step (plain warps,
+   plain GELU and GroupNorm chains); (e) ``stabilize --profile-dir``'s trace and
    ``[profile]`` lines around the ``fast`` sync and overlapped streams of
    the 720p clip: B1's packed kernel once a chunk in the trace, the top
    eight ops, each stream's device idle share (a 96-frame clip);
@@ -285,7 +289,7 @@ def build_report() -> list:
                 frame = line.strip()
             elif "Used" in line and entry:
                 # <digit>kernel_name[ILi<stage>E] inside the mangled name
-                short = re.search(r"\d((?:warp|gelu)_[a-z0-9_]*?_kernel)"
+                short = re.search(r"\d((?:warp|gelu|gn)_[a-z0-9_]*?_kernel)"
                                   r"(?:ILi(\d+)E)?", entry)
                 kernel = entry if not short else short[1] + (
                     f"<{short[2]}>" if short[2] else "")
@@ -1318,6 +1322,17 @@ def gelu_launches() -> dict:
             "gelu_bf16_bwd": bf16_round.LAUNCHES_GELU_BWD}
 
 
+def gn_launches() -> dict:
+    return {"group_norm_bf16_fwd": bf16_round.LAUNCHES_GN_FWD,
+            "group_norm_bf16_bwd": bf16_round.LAUNCHES_GN_BWD}
+
+
+def gn_calls(mcfg) -> int:
+    """The bf16 conv + GroupNorm calls of one pass of the trunk: two a
+    ResBlock."""
+    return 2 * motion_cnn.pyramid_levels(mcfg) * mcfg.blocks_per_level
+
+
 def gelu_calls(mcfg) -> int:
     """The bf16 GELU calls of one pass of the corr model's encoder: the
     stem's, then each level's down conv's and two a ResBlock."""
@@ -1327,21 +1342,25 @@ def gelu_calls(mcfg) -> int:
 
 @contextlib.contextmanager
 def plain_warps():
-    """Route the training path's two warps and the bf16 GELU's two kernels
-    to their plain versions (on whatever device), to hold the kernels'
-    step against."""
+    """Route the training path's two warps and the bf16 GELU's and
+    GroupNorm's kernels to their plain versions (on whatever device), to
+    hold the kernels' step against."""
     saved = (warp_ops.warp_batch, warp_ops.warp_batch_diff,
-             bf16_round._launch_fwd, bf16_round._launch_bwd)
+             bf16_round._launch_fwd, bf16_round._launch_bwd,
+             bf16_round._launch_gn_fwd, bf16_round._launch_gn_bwd)
     warp_ops.warp_batch = warp_bilinear.bilinear_warp_batch_plain
     warp_ops.warp_batch_diff = \
         warp_bilinear.bilinear_warp_batch_grids_diff_plain
     bf16_round._launch_fwd = bf16_round.gelu_plain
     bf16_round._launch_bwd = bf16_round.gelu_grad_plain
+    bf16_round._launch_gn_fwd = bf16_round.group_norm_bf16_plain
+    bf16_round._launch_gn_bwd = bf16_round.group_norm_bf16_grad_plain
     try:
         yield
     finally:
         (warp_ops.warp_batch, warp_ops.warp_batch_diff,
-         bf16_round._launch_fwd, bf16_round._launch_bwd) = saved
+         bf16_round._launch_fwd, bf16_round._launch_bwd,
+         bf16_round._launch_gn_fwd, bf16_round._launch_gn_bwd) = saved
 
 
 def loss_and_grads(state, cfg, step: int):
@@ -1361,9 +1380,10 @@ def kernels_vs_plain_step(state, cfg, step: int, loss_tol: float = 1e-4,
                           grad_tol: float = 1e-3) -> dict:
     """One step's loss and parameter gradients through the kernels against
     the same step through the plain versions, both on the card. A bf16
-    step launches each GELU kernel once a GELU call, an f32 step never."""
+    step launches each GELU kernel once a GELU call and each GroupNorm
+    kernel once a conv + GroupNorm call, an f32 step neither."""
     def launches():
-        return {**train_launches(), **gelu_launches()}
+        return {**train_launches(), **gelu_launches(), **gn_launches()}
     reset = launches()
     aux_k, grads_k = loss_and_grads(state, cfg, step)
     used = {k: v - reset[k] for k, v in launches().items()}
@@ -1372,9 +1392,12 @@ def kernels_vs_plain_step(state, cfg, step: int, loss_tol: float = 1e-4,
         aux_p, grads_p = loss_and_grads(state, cfg, step)
         if launches() != before:
             raise AssertionError("the plain step launched a kernel")
-    n_gelu = gelu_calls(cfg.model) if cfg.model.dtype == "bfloat16" else 0
+    bf16 = cfg.model.dtype == "bfloat16"
+    n_gelu, n_gn = (gelu_calls(cfg.model), gn_calls(cfg.model)) if bf16 \
+        else (0, 0)
     if (min(used[k] for k in train_launches()) < 1
-            or any(used[k] != n_gelu for k in gelu_launches())):
+            or any(used[k] != n_gelu for k in gelu_launches())
+            or any(used[k] != n_gn for k in gn_launches())):
         raise AssertionError(f"the kernel step launched {used}")
     loss_rel = abs(aux_k["total"] - aux_p["total"]) / abs(aux_p["total"])
     grad_rel = max(
@@ -1424,6 +1447,19 @@ def expect_gelu_launches(name: str, mcfg, steps: int) -> dict:
     if any(v != want for v in got.values()):
         raise AssertionError(f"[{name}] GELU launches {got} for {steps} "
                              f"steps of {gelu_calls(mcfg)} calls")
+    return got
+
+
+def expect_gn_launches(name: str, mcfg, steps: int) -> dict:
+    """The bf16 GroupNorm kernels' launches since their counters were set
+    to 0: one forward and one backward a conv + GroupNorm call (two a
+    ResBlock) of each train step."""
+    got, want = gn_launches(), gn_calls(mcfg) * steps
+    log(f"  [{name}] GroupNorm kernel launches in {steps} steps: {got} "
+        f"(want {want} each)")
+    if any(v != want for v in got.values()):
+        raise AssertionError(f"[{name}] GroupNorm launches {got} for "
+                             f"{steps} steps of {gn_calls(mcfg)} calls")
     return got
 
 
@@ -1869,6 +1905,203 @@ def time_gelu_kernels(dev) -> dict:
             f"{100 * bound_ms / r['ms']:.1f} % of the bound {bound_ms:.4f} "
             f"ms ({by}); plain op chain {r['plain_ms']:.4f} ms; one PyTorch "
             f"call (tanh GELU, one rounding) {r['library_ms']:.4f} ms")
+    return recs
+
+
+# The bf16 GroupNorm's largest call on its path: the quality trunk's first
+# level for the training step's 192 frames, 64 x 128 x 128 each, 8 groups.
+GN_SHAPE, GN_GROUPS = (192, 64, 128, 128), 8
+
+
+def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """The bf16 steps between two bf16 tensors, value by value (their
+    ordered bit patterns; ±0 are one)."""
+    def order(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (order(got) - order(want)).abs()
+
+
+def gn_ulps_at_scale(got, want, x, bias, weight, beta, stats, groups: int,
+                     eps: float) -> float:
+    """The most bf16 ulps between two bf16 GroupNorm outputs at the scale
+    of the normalize's largest term (the output, (y - mean) * s or the
+    shift): where the shift cancels the product, an f32 ulp of the
+    statistics is many bf16 steps of the output."""
+    c = x.shape[1]
+    mean = stats[..., 0].repeat_interleave(c // groups, dim=1)
+    s = (stats[..., 1].clamp(min=0) + eps).rsqrt().repeat_interleave(
+        c // groups, dim=1) * weight
+    y = x.float() + bias.bfloat16().float()[:, None, None]
+    scale = torch.maximum(
+        torch.maximum(got.float().abs(), want.float().abs()),
+        torch.maximum(((y - mean[..., None, None]) * s[..., None, None]
+                       ).abs(), beta.abs()[:, None, None].expand_as(y)))
+    ulp = torch.exp2(torch.floor(torch.log2(scale.clamp(min=2.0 ** -126)))
+                     - 7)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def gn_chain64(x, bias, weight, beta, g, groups: int, eps: float) -> tuple:
+    """The bf16 GroupNorm chain's formulas with every f32 op and sum in
+    float64 and every bf16 rounding kept: (output, (B, groups, 2) mean and
+    variance, dx, dbias, dweight, dbeta)."""
+    b, c, h, w = x.shape
+    cpg = c // groups
+    y = x.double() + bias.bfloat16().double()[:, None, None]
+    q = y.bfloat16().double().reshape(b, groups, -1)
+    n = q.shape[-1]
+    mean = q.mean(dim=-1, keepdim=True)
+    var = ((q - mean) ** 2).mean(dim=-1, keepdim=True)
+    del q
+    r5 = (var + eps).rsqrt().reshape(b, groups, 1, 1, 1)
+    s = r5 * weight.double().reshape(groups, cpg, 1, 1)
+    d = y.reshape(b, groups, cpg, h, w) - mean.reshape(b, groups, 1, 1, 1)
+    del y
+    out = ((d * s).reshape(x.shape) + beta.double()[:, None, None]
+           ).bfloat16()
+    ge = g.double().reshape(b, groups, cpg, h, w)
+    ds = (ge * d).sum(dim=(3, 4), keepdim=True)
+    dd = ge * s
+    dweight = (ds * r5).sum(dim=0).reshape(c)
+    dbeta = ge.sum(dim=(0, 3, 4)).reshape(c)
+    dr = (ds * weight.double().reshape(groups, cpg, 1, 1)).sum(
+        dim=2).reshape(b, groups, 1)
+    dvar = -0.5 * dr * r5.reshape(b, groups, 1) ** 3
+    dmean = -dd.sum(dim=(2, 3, 4)).reshape(b, groups, 1) - 2 * mean * dvar
+    q = (d + mean.reshape(b, groups, 1, 1, 1)).reshape(b, groups, -1)
+    dq = (2 * (dvar / n) * q + dmean / n).reshape(x.shape)
+    dx = (dd.reshape(x.shape).bfloat16().double()
+          + dq.bfloat16().double()).bfloat16()
+    dbias = dx.double().sum(dim=(0, 2, 3)).bfloat16().float()
+    stats = torch.cat([mean, var], dim=-1)
+    return out, stats, dx, dbias, dweight, dbeta
+
+
+def gn_against_chain(got, x, bias, weight, beta, g, groups: int,
+                     eps: float) -> dict:
+    """The GroupNorm kernels' outputs ``got`` (y, stats, dx, dbias,
+    dweight, dbeta) for bf16 ``x`` and cotangent ``g`` against the op
+    chain's on the same device and ``gn_chain64``'s. Raises unless: each
+    output has the chain's dtype and layout; y is within one bf16 ulp of
+    the chain's at the scale of the normalize's terms, off the float64
+    output in no more values than the chain's, and within one ulp of it at
+    that scale (in bf16 steps an output near 0, where the shift cancels
+    the product, sits as far from the float64 one in the chain as in the
+    kernel: both steps are reported, and neither is a limit); the
+    mean and variance are no farther from float64 ones than the chain's,
+    group by group; dx is off the float64 dx in no more values than the
+    chain's; dbias, dweight and dbeta are no farther from the float64 ones
+    than the chain's in their worst channel. Returns each reading as
+    (kernel, chain) where it has two."""
+    chain = [*bf16_round.group_norm_bf16_plain(x, bias, weight, beta,
+                                               groups, eps)]
+    chain += bf16_round.group_norm_bf16_grad_plain(g, x, chain[1], bias,
+                                                   weight, groups, eps)
+    ref = gn_chain64(x, bias, weight, beta, g, groups, eps)
+    for i, (k, c) in enumerate(zip(got, chain)):
+        if (k.shape, k.dtype, k.stride()) != (c.shape, c.dtype, c.stride()):
+            raise AssertionError(f"GroupNorm output {i}: {k.dtype} "
+                                 f"{tuple(k.shape)} {k.stride()}, the "
+                                 f"chain's {c.dtype} {c.stride()}")
+    steps = bf16_steps(got[0], chain[0])
+    rec = {"out_differ": int((steps > 0).sum()),
+           "out_steps_from_chain": int(steps.max()),
+           "out_ulps_at_scale": gn_ulps_at_scale(
+               got[0], chain[0], x, bias, weight, beta, chain[1], groups,
+               eps)}
+    for i, name in ((0, "out"), (2, "dx")):
+        rec[f"{name}_off_f64"] = [int((t[i] != ref[i]).sum())
+                                  for t in (got, chain)]
+        rec[f"{name}_steps_off_f64"] = [int(bf16_steps(t[i], ref[i]).max())
+                                        for t in (got, chain)]
+    rec["out_ulps_off_f64"] = [gn_ulps_at_scale(
+        t[0], ref[0], x, bias, weight, beta, ref[1], groups, eps)
+        for t in (got, chain)]
+    for j, name in ((0, "mean"), (1, "var")):
+        k, c = ((t[1][..., j].double() - ref[1][..., j]).abs()
+                for t in (got, chain))
+        rec[f"{name}_off_f64"] = [float(k.max()), float(c.max())]
+        rec[f"{name}_groups_farther"] = int((k > c).sum())
+    for i, name in ((3, "dbias"), (4, "dweight"), (5, "dbeta")):
+        rec[f"{name}_off_f64"] = [float((t[i].double() - ref[i]).abs().max())
+                                  for t in (got, chain)]
+    del chain, ref
+    failed = [name for name, bad in (
+        ("out_ulps_at_scale", rec["out_ulps_at_scale"] > 1.0),
+        ("out_off_f64", rec["out_off_f64"][0] > rec["out_off_f64"][1]),
+        ("out_ulps_off_f64", rec["out_ulps_off_f64"][0] > 1.0),
+        ("mean", rec["mean_groups_farther"] > 0),
+        ("var", rec["var_groups_farther"] > 0),
+        ("dx_off_f64", rec["dx_off_f64"][0] > rec["dx_off_f64"][1]),
+        *((name, rec[f"{name}_off_f64"][0] > rec[f"{name}_off_f64"][1])
+          for name in ("dbias", "dweight", "dbeta"))) if bad]
+    if failed:
+        raise AssertionError(f"GroupNorm kernels {list(x.shape)}, {groups} "
+                             f"groups, against the op chain: {failed} "
+                             f"failed; {rec}")
+    return rec
+
+
+def time_gn_kernels(dev) -> dict:
+    """Both bf16 GroupNorm kernels at ``GN_SHAPE``, beside their bound (4
+    and 6 bytes an element), the plain op chain and aten's GroupNorm on
+    bf16 (``F.group_norm`` and its backward op; they round once and take
+    no conv bias: a yardstick only). Before the times, every output of
+    both kernels there against the op chain's and a float64 chain's
+    (``gn_against_chain``, which raises where a kernel falls short)."""
+    b, c, h, w = GN_SHAPE
+    x = (torch.randn(GN_SHAPE, device=dev) * 2.0 + 0.3).bfloat16()
+    g = torch.randn(GN_SHAPE, device=dev).bfloat16()
+    bias, beta = (0.1 * torch.randn(c, device=dev) for _ in range(2))
+    weight = 1.0 + 0.1 * torch.randn(c, device=dev)
+    n, args = x.numel(), (GN_GROUPS, motion_cnn.GN_EPS)
+    y, stats = bf16_round.group_norm_bf16(x, bias, weight, beta, *args)
+    got = (y, stats, *bf16_round.group_norm_bf16_bwd(g, x, stats, bias,
+                                                     weight, *args))
+    check = gn_against_chain(got, x, bias, weight, beta, g, *args)
+    del y, got
+    log(f"  group_norm_bf16 {list(GN_SHAPE)} against the op chain: out "
+        f"{check['out_differ']} values ({100 * check['out_differ'] / n:.4f}"
+        f" %) apart, by at most {check['out_steps_from_chain']} steps, "
+        f"within {check['out_ulps_at_scale']:.3f} ulp at the terms' scale; "
+        f"off the float64 chain (kernel / chain): out values "
+        f"{check['out_off_f64']}, steps {check['out_steps_off_f64']}, ulps "
+        f"at the terms' scale {check['out_ulps_off_f64']}; mean "
+        f"{check['mean_off_f64']}, var {check['var_off_f64']}; dx values "
+        f"{check['dx_off_f64']}, steps {check['dx_steps_off_f64']}; dbias "
+        f"{check['dbias_off_f64']}, dweight {check['dweight_off_f64']}, "
+        f"dbeta {check['dbeta_off_f64']}")
+    wb, bb = weight.bfloat16(), beta.bfloat16()
+    _, mean, rstd = torch.ops.aten.native_group_norm(x, wb, bb, b, c, h * w,
+                                                     GN_GROUPS, args[1])
+    recs = {}
+    for name, n_bytes, kernel, plain, library in (
+            ("group_norm_bf16_fwd", 4 * n,
+             lambda: bf16_round.group_norm_bf16(x, bias, weight, beta, *args),
+             lambda: bf16_round.group_norm_bf16_plain(x, bias, weight, beta,
+                                                      *args),
+             lambda: F.group_norm(x, GN_GROUPS, wb, bb, args[1])),
+            ("group_norm_bf16_bwd", 6 * n,
+             lambda: bf16_round.group_norm_bf16_bwd(g, x, stats, bias, weight,
+                                                    *args),
+             lambda: bf16_round.group_norm_bf16_grad_plain(
+                 g, x, stats, bias, weight, *args),
+             lambda: torch.ops.aten.native_group_norm_backward(
+                 g, x, mean, rstd, wb, b, c, h * w, GN_GROUPS,
+                 [True, True, True]))):
+        bound_ms, by = bound(n_bytes, 0)
+        recs[name] = {"against_chain": check, "ms": median_ms(kernel),
+                      "warm_l2_ms": median_ms(kernel, cold=False),
+                      "plain_ms": median_ms(plain, iters=5),
+                      "library_ms": median_ms(library), "bound_ms": bound_ms,
+                      "bound_by": by, "shape": list(GN_SHAPE)}
+        r = recs[name]
+        log(f"  {name} {r['shape']} bf16: {r['ms']:.4f} ms from a cold L2 "
+            f"({r['warm_l2_ms']:.4f} ms back to back) = "
+            f"{100 * bound_ms / r['ms']:.1f} % of the bound {bound_ms:.4f} "
+            f"ms ({by}); plain op chain {r['plain_ms']:.4f} ms; aten's bf16 "
+            f"GroupNorm {r['library_ms']:.4f} ms")
     return recs
 
 
@@ -2642,7 +2875,8 @@ def phase_bf16_stacked(seed: int, dev, work_dir: str):
     stacked arch at the presets' widths (stabilize, train, export), bf16
     training and the profiler on the sync and overlapped streams. Returns
     (offsets-kernel launches, training-kernel launches, results); the
-    results hold the GELU kernels' launches in the bf16 training runs."""
+    results hold the GELU and GroupNorm kernels' launches in the bf16
+    training runs."""
     from dvsg_tpu_torch import cli
     from dvsg_tpu_torch import export as export_lib
     from dvsg_tpu_torch.utils import profiling
@@ -2652,6 +2886,7 @@ def phase_bf16_stacked(seed: int, dev, work_dir: str):
     launches = 0
     train_counts = {k: 0 for k in train_launches()}
     gelu_counts = {k: 0 for k in gelu_launches()}
+    gn_counts = {k: 0 for k in gn_launches()}
     results = {}
 
     def exported(name, cfg, params, want):
@@ -2918,6 +3153,7 @@ def phase_bf16_stacked(seed: int, dev, work_dir: str):
             tcfg, torch.Generator().manual_seed(seed), device="cuda")
         reset_train_launches()
         bf16_round.LAUNCHES_GELU_FWD = bf16_round.LAUNCHES_GELU_BWD = 0
+        bf16_round.LAUNCHES_GN_FWD = bf16_round.LAUNCHES_GN_BWD = 0
         history, step_ms = timed_steps(state, tcfg, seed, 0,
                                        BF16_TRAIN_STEPS)
         for k, v in expect_launches(f"{preset} bf16 train",
@@ -2926,6 +3162,9 @@ def phase_bf16_stacked(seed: int, dev, work_dir: str):
         for k, v in expect_gelu_launches(f"{preset} bf16 train", tcfg.model,
                                          BF16_TRAIN_STEPS).items():
             gelu_counts[k] += v
+        for k, v in expect_gn_launches(f"{preset} bf16 train", tcfg.model,
+                                       BF16_TRAIN_STEPS).items():
+            gn_counts[k] += v
         check_history(f"{preset} bf16 train", history, BF16_TRAIN_STEPS,
                       falls=False)
         step_check = kernels_vs_plain_step(state, tcfg, BF16_TRAIN_STEPS,
@@ -2971,6 +3210,7 @@ def phase_bf16_stacked(seed: int, dev, work_dir: str):
         results[f"profile_{tag}"] = {"top8": dict(list(summary.items())[:8]),
                                      "b1": b1, "busy": busy}
     results["gelu_launches"] = gelu_counts
+    results["gn_launches"] = gn_counts
     return launches, train_counts, results
 
 
@@ -4235,6 +4475,7 @@ def main(argv=None) -> int:
     phase_train_times(args.seed, train_results)
     dense = time_dense_kernels(rng, dev)
     dense.update(time_gelu_kernels(dev))
+    dense.update(time_gn_kernels(dev))
 
     log("== phase 8: batch and serve, both presets, 1280x720")
     with tempfile.TemporaryDirectory() as work_dir:
@@ -4309,6 +4550,16 @@ def main(argv=None) -> int:
                 gelu_differ + dense[name]["values_differ"], dense[name],
                 err_name="values_differ")
           for name in ("gelu_bf16_fwd", "gelu_bf16_bwd")),
+        entry("group_norm_bf16_fwd", "bf16_round", "none (XLA's fusion)",
+              p10_results["gn_launches"]["group_norm_bf16_fwd"],
+              dense["group_norm_bf16_fwd"]["against_chain"][
+                  "out_ulps_at_scale"], dense["group_norm_bf16_fwd"],
+              err_name="ulps_from_chain_at_scale"),
+        entry("group_norm_bf16_bwd", "bf16_round", "none (XLA's fusion)",
+              p10_results["gn_launches"]["group_norm_bf16_bwd"],
+              dense["group_norm_bf16_bwd"]["against_chain"]["dx_off_f64"],
+              dense["group_norm_bf16_bwd"],
+              err_name="dx_values_off_f64_vs_chain"),
     ]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel was never launched on its path: "

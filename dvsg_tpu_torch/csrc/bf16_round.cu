@@ -1,5 +1,7 @@
 // The bf16 trunk's rounding passes for Hopper (sm_90a): GELU's forward and
-// its gradient, each one pass over device memory.
+// its gradient, each one pass over device memory; a bf16 conv's bias add
+// with the GroupNorm after it, forward and backward, each one kernel that
+// reads a (sample, group) once.
 //
 // Replaces no Pallas kernel. The reference writes jax.nn.gelu (tanh form)
 // on bf16 arrays and takes its gradient by JAX's transposed JVP; XLA fuses
@@ -40,11 +42,44 @@
 //
 // Inputs are dense on the device, x and g (and y / dx) with the same
 // strides, so the kernels walk the storage as a flat array of n values.
+//
+// The GroupNorm (after the GELU kernels below) computes, for x the bf16
+// conv without its bias, NCHW, and c a value's channel:
+//
+//   forward   y = x + bf16(bias_c) in f32; mean and var = E[q^2] - mean^2
+//             of q = bf16(y) over the (sample, group); out = bf16(
+//             (y - mean) * (rstd * w_c) + beta_c), rstd = rsqrt(max(var, 0)
+//             + eps), each op an f32 op rounded to nearest, in that order;
+//   backward  for the bf16 cotangent G: dd = G * s_c (s_c = rstd * w_c),
+//             dq = 2 (k1 q) + k0 with k1 = dvar / n, k0 = dmean / n from
+//             the group's sums of G s_c and G (y - mean) w_c (dvar 0 where
+//             var was clamped), dx = bf16(bf16(dq) + bf16(dd)); the conv
+//             bias's gradient bf16(sum of dx), the weight's sum of
+//             G (y - mean) rstd, the shift's sum of G.
+//
+// Every bf16 rounding is the plain chain's (bf16x2 adds where both
+// operands are bf16 values, by the argument above); its f32 sums over a
+// group or a channel are taken here in a fixed order instead, so two runs
+// give the same bytes: the statistics in f64 from the first value on (a
+// bf16 value's square is exact there, and the f32 statistics come out
+// rounded once from nearly exact ones), the gradient's sums in f32 over
+// the 8 values of a 16-byte load and f64 above. A (sample,
+// group) is one thread-block cluster (up to 8 blocks, ~16 K values a
+// block), each block owning whole "units" (up to ~1 K values of one
+// channel, one warp each) and keeping them in shared memory, so x (and G)
+// is read once: 4 bytes an element forward, 6 backward, as GELU's. The
+// blocks exchange their sums through distributed shared memory; a group
+// too large for the cache re-reads its values. The per-channel gradients
+// across the batch come from per-unit partials, reduced by a second
+// small kernel in a fixed order: no float atomics.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -257,5 +292,582 @@ extern "C" int dvsg_gelu_bf16_bwd(const void* x, const void* g, void* dx,
     gelu_bf16_bwd_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
         xin, static_cast<const __nv_bfloat16*>(g), out, n, vecs, cube, s2pi);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// --- the conv bias add + GroupNorm -------------------------------------------
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kGnThreads = 512;
+constexpr int kGnWarps = kGnThreads / 32;
+constexpr long long kGnUnit = 1024;     // values a unit, about
+constexpr long long kGnBlock = 16384;   // values a block, about
+constexpr int kGnMaxCluster = 8;        // the portable cluster size
+constexpr size_t kGnCache = 96 * 1024;  // shared memory a block may cache
+constexpr int kGnSumThreads = 256;      // the per-channel sums' block
+
+// How a (sample, group) is split: `units` units of at most `len` values,
+// each inside one channel (`parts` a channel), over `cluster` blocks, each
+// with consecutive units (at most `per_block`) and, with `cached`, a copy
+// of their values in shared memory.
+struct GnPlan {
+  long long hw;       // values a channel
+  long long len;      // values a unit (a channel's last may be shorter)
+  long long slice;    // values a block's cache holds, per array
+  int groups;         // groups a sample
+  int cpg;            // channels a group
+  int parts;          // units a channel
+  int units;          // units a group
+  int cluster;        // blocks a group
+  int per_block;      // most units a block
+  int vec;            // 16-byte loads (hw % 8 == 0, aligned pointers)
+  int cached;         // each block keeps its values in shared memory
+  size_t part_bytes;  // shared memory for the per-unit sums
+  size_t smem;        // dynamic shared memory a block
+};
+
+// `arrays` bf16 arrays cached (x, and the cotangent backward), `sums`
+// doubles a unit.
+GnPlan gn_plan(long long c, long long hw, int groups, int arrays, int sums,
+               bool aligned) {
+  GnPlan p{};
+  p.hw = hw;
+  p.groups = groups;
+  p.cpg = static_cast<int>(c / groups);
+  const long long parts = hw >= 2 * kGnUnit ? hw / kGnUnit : 1;
+  p.len = ((hw + parts - 1) / parts + kVec - 1) / kVec * kVec;
+  p.parts = static_cast<int>((hw + p.len - 1) / p.len);
+  p.units = p.cpg * p.parts;
+  long long s = (static_cast<long long>(p.cpg) * hw + kGnBlock - 1) /
+                kGnBlock;
+  if (s > kGnMaxCluster) s = kGnMaxCluster;
+  if (s > p.units) s = p.units;
+  p.cluster = s < 1 ? 1 : static_cast<int>(s);
+  p.per_block = (p.units + p.cluster - 1) / p.cluster;
+  p.vec = aligned && hw % kVec == 0;
+  p.slice = static_cast<long long>(p.per_block) * p.len;
+  p.part_bytes =
+      (static_cast<size_t>(p.per_block) * sums * sizeof(double) + 15) / 16 *
+      16;
+  const size_t cache =
+      static_cast<size_t>(p.slice) * arrays * sizeof(__nv_bfloat16);
+  p.cached = cache <= kGnCache;
+  p.smem = p.part_bytes + (p.cached ? cache : 0);
+  return p;
+}
+
+// A unit: its channel in the group, its first value's offset in the group,
+// its length.
+struct Unit {
+  int c;
+  long long start, n;
+};
+
+__device__ __forceinline__ Unit unit_of(const GnPlan& p, int u) {
+  Unit r;
+  r.c = u / p.parts;
+  const long long lo = static_cast<long long>(u % p.parts) * p.len;
+  r.start = static_cast<long long>(r.c) * p.hw + lo;
+  r.n = (lo + p.len < p.hw ? lo + p.len : p.hw) - lo;
+  return r;
+}
+
+// The first unit of cluster block `rank` (rank == cluster: the end).
+__device__ __forceinline__ int first_unit(const GnPlan& p, int rank) {
+  return static_cast<int>(static_cast<long long>(rank) * p.units /
+                          p.cluster);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// 1 / sqrt(max(var, 0) + eps): the clamp, then the f32 add, as the chain;
+// the root and quotient correctly rounded. A NaN stays NaN.
+__device__ __forceinline__ float gn_rstd(float var, float eps) {
+  const float v = __fadd_rn(var < 0.0f ? 0.0f : var, eps);
+  return static_cast<float>(1.0 / sqrt(static_cast<double>(v)));
+}
+
+// Lane 0's sum of the warp's values, in a fixed order.
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Eight f32 values summed pairwise.
+__device__ __forceinline__ float sum8(const float* v) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[1]), __fadd_rn(v[2], v[3])),
+                   __fadd_rn(__fadd_rn(v[4], v[5]), __fadd_rn(v[6], v[7])));
+}
+
+// The cluster's sum of each block's two doubles `mine` (in shared memory,
+// written before), block by block in rank order: the same bits in every
+// block.
+__device__ __forceinline__ void cluster_sum2(cg::cluster_group& cl,
+                                             double* mine, int blocks,
+                                             double* out) {
+  double a = 0.0, b = 0.0;
+  for (int r = 0; r < blocks; ++r) {
+    const double* t = cl.map_shared_rank(mine, r);
+    a += t[0];
+    b += t[1];
+  }
+  out[0] = a;
+  out[1] = b;
+}
+
+// Forward: one cluster of p.cluster blocks a (sample, group).
+__global__ void __launch_bounds__(kGnThreads, 2)
+    gn_bf16_fwd_kernel(const __nv_bfloat16* __restrict__ x,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ weight,
+                       const float* __restrict__ beta,
+                       __nv_bfloat16* __restrict__ y,
+                       float* __restrict__ stats, GnPlan p, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double total[2];
+  __shared__ float group_stat[2];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
+  const long long grp = blockIdx.x / p.cluster;
+  const long long off = grp * p.cpg * p.hw;
+  const __nv_bfloat16* xg = x + off;
+  __nv_bfloat16* yg = y + off;
+  const int ch0 = static_cast<int>(grp % p.groups) * p.cpg;
+  double* part = reinterpret_cast<double*>(smem);  // (sum q, sum q^2) a unit
+  __nv_bfloat16* cache =
+      reinterpret_cast<__nv_bfloat16*>(smem + p.part_bytes);
+  const int first = first_unit(p, rank), last = first_unit(p, rank + 1);
+  const long long base = unit_of(p, first).start;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // The statistics' sums of q = bf16(x + bf16(bias)), a unit a warp.
+  for (int u = first + warp; u < last; u += kGnWarps) {
+    const Unit t = unit_of(p, u);
+    const __nv_bfloat16 bb = __float2bfloat16_rn(bias[ch0 + t.c]);
+    double s = 0.0, q = 0.0;
+    if (p.vec) {
+      const bf2 bb2 = __bfloat162bfloat162(bb);
+      const uint4* src = reinterpret_cast<const uint4*>(xg + t.start);
+      uint4* keep = reinterpret_cast<uint4*>(cache + (t.start - base));
+      for (long long v = lane; v < t.n / kVec; v += 32) {
+        const uint4 w = __ldg(src + v);
+        if (p.cached) keep[v] = w;
+        const bf2* h = reinterpret_cast<const bf2*>(&w);
+        double a[kVec / 2], b[kVec / 2];
+#pragma unroll
+        for (int j = 0; j < kVec / 2; ++j) {
+          const float2 f = __bfloat1622float2(__hadd2_rn(h[j], bb2));
+          const double lo = f.x, hi = f.y;
+          a[j] = lo + hi;
+          b[j] = fma(lo, lo, hi * hi);
+        }
+        s += (a[0] + a[1]) + (a[2] + a[3]);
+        q += (b[0] + b[1]) + (b[2] + b[3]);
+      }
+    } else {
+      const float bbf = __bfloat162float(bb);
+      for (long long i = lane; i < t.n; i += 32) {
+        const __nv_bfloat16 w = xg[t.start + i];
+        if (p.cached) cache[t.start - base + i] = w;
+        const double f = round_bf16(__fadd_rn(__bfloat162float(w), bbf));
+        s += f;
+        q = fma(f, f, q);
+      }
+    }
+    s = warp_sum(s);
+    q = warp_sum(q);
+    if (lane == 0) {
+      part[2 * (u - first)] = s;
+      part[2 * (u - first) + 1] = q;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double s = 0.0, q = 0.0;
+    for (int k = 0; k < last - first; ++k) {
+      s += part[2 * k];
+      q += part[2 * k + 1];
+    }
+    total[0] = s;
+    total[1] = q;
+  }
+  cl.sync();
+  if (threadIdx.x == 0) {
+    double sums[2];
+    cluster_sum2(cl, total, p.cluster, sums);
+    const double n = static_cast<double>(p.cpg) * p.hw;
+    const double mean = sums[0] / n;
+    group_stat[0] = static_cast<float>(mean);
+    group_stat[1] = static_cast<float>(sums[1] / n - mean * mean);
+    if (rank == 0) {
+      stats[2 * grp] = group_stat[0];
+      stats[2 * grp + 1] = group_stat[1];
+    }
+  }
+  cl.sync();  // the statistics in every thread; no block reads another's
+
+  // The normalize of the unrounded y = x + bf16(bias), one rounding.
+  const float mean = group_stat[0];
+  const float rstd = gn_rstd(group_stat[1], eps);
+  for (int u = first + warp; u < last; u += kGnWarps) {
+    const Unit t = unit_of(p, u);
+    const int ch = ch0 + t.c;
+    const float bbf = round_bf16(bias[ch]);
+    const float sc = __fmul_rn(rstd, weight[ch]);
+    const float sh = beta[ch];
+    if (p.vec) {
+      const uint4* src = reinterpret_cast<const uint4*>(xg + t.start);
+      const uint4* keep =
+          reinterpret_cast<const uint4*>(cache + (t.start - base));
+      uint4* dst = reinterpret_cast<uint4*>(yg + t.start);
+      for (long long v = lane; v < t.n / kVec; v += 32) {
+        const uint4 w = p.cached ? keep[v] : __ldg(src + v);
+        const bf2* h = reinterpret_cast<const bf2*>(&w);
+        uint4 out;
+        bf2* o = reinterpret_cast<bf2*>(&out);
+#pragma unroll
+        for (int j = 0; j < kVec / 2; ++j) {
+          const float2 f = __bfloat1622float2(h[j]);
+          o[j] = __floats2bfloat162_rn(
+              __fadd_rn(__fmul_rn(__fsub_rn(__fadd_rn(f.x, bbf), mean), sc),
+                        sh),
+              __fadd_rn(__fmul_rn(__fsub_rn(__fadd_rn(f.y, bbf), mean), sc),
+                        sh));
+        }
+        dst[v] = out;
+      }
+    } else {
+      for (long long i = lane; i < t.n; i += 32) {
+        const __nv_bfloat16 w =
+            p.cached ? cache[t.start - base + i] : xg[t.start + i];
+        yg[t.start + i] = __float2bfloat16_rn(__fadd_rn(
+            __fmul_rn(__fsub_rn(__fadd_rn(__bfloat162float(w), bbf), mean),
+                      sc),
+            sh));
+      }
+    }
+  }
+}
+
+// Backward: one cluster a (sample, group), as the forward. Writes dx and,
+// for each unit, (sum G, sum G (y - mean), sum dx) to `partial`.
+__global__ void __launch_bounds__(kGnThreads, 2)
+    gn_bf16_bwd_kernel(const __nv_bfloat16* __restrict__ g,
+                       const __nv_bfloat16* __restrict__ x,
+                       const float* __restrict__ stats,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ weight,
+                       __nv_bfloat16* __restrict__ dx,
+                       double* __restrict__ partial, GnPlan p, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double total[2];
+  __shared__ float coef[2];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = static_cast<int>(cl.block_rank());
+  const long long grp = blockIdx.x / p.cluster;
+  const long long off = grp * p.cpg * p.hw;
+  const __nv_bfloat16* xg = x + off;
+  const __nv_bfloat16* gg = g + off;
+  __nv_bfloat16* dxg = dx + off;
+  const int ch0 = static_cast<int>(grp % p.groups) * p.cpg;
+  double* part = reinterpret_cast<double*>(smem);  // 3 sums a unit
+  __nv_bfloat16* xc = reinterpret_cast<__nv_bfloat16*>(smem + p.part_bytes);
+  __nv_bfloat16* gc = xc + p.slice;
+  const int first = first_unit(p, rank), last = first_unit(p, rank + 1);
+  const long long base = unit_of(p, first).start;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float mean = stats[2 * grp], var = stats[2 * grp + 1];
+  const float rstd = gn_rstd(var, eps);
+
+  // The sums of G and of G (y - mean), a unit a warp.
+  for (int u = first + warp; u < last; u += kGnWarps) {
+    const Unit t = unit_of(p, u);
+    const float bbf = round_bf16(bias[ch0 + t.c]);
+    double a = 0.0, b = 0.0;
+    if (p.vec) {
+      const uint4* xs = reinterpret_cast<const uint4*>(xg + t.start);
+      const uint4* gs = reinterpret_cast<const uint4*>(gg + t.start);
+      uint4* xk = reinterpret_cast<uint4*>(xc + (t.start - base));
+      uint4* gk = reinterpret_cast<uint4*>(gc + (t.start - base));
+      for (long long v = lane; v < t.n / kVec; v += 32) {
+        const uint4 xw = __ldg(xs + v), gw = __ldg(gs + v);
+        if (p.cached) {
+          xk[v] = xw;
+          gk[v] = gw;
+        }
+        const bf2* xh = reinterpret_cast<const bf2*>(&xw);
+        const bf2* gh = reinterpret_cast<const bf2*>(&gw);
+        float av[kVec], bv[kVec];
+#pragma unroll
+        for (int j = 0; j < kVec / 2; ++j) {
+          const float2 xf = __bfloat1622float2(xh[j]);
+          const float2 gf = __bfloat1622float2(gh[j]);
+          av[2 * j] = gf.x;
+          av[2 * j + 1] = gf.y;
+          bv[2 * j] = __fmul_rn(gf.x, __fsub_rn(__fadd_rn(xf.x, bbf), mean));
+          bv[2 * j + 1] =
+              __fmul_rn(gf.y, __fsub_rn(__fadd_rn(xf.y, bbf), mean));
+        }
+        a += sum8(av);
+        b += sum8(bv);
+      }
+    } else {
+      for (long long i = lane; i < t.n; i += 32) {
+        const __nv_bfloat16 xw = xg[t.start + i], gw = gg[t.start + i];
+        if (p.cached) {
+          xc[t.start - base + i] = xw;
+          gc[t.start - base + i] = gw;
+        }
+        const float gf = __bfloat162float(gw);
+        a += gf;
+        b += __fmul_rn(gf, __fsub_rn(__fadd_rn(__bfloat162float(xw), bbf),
+                                     mean));
+      }
+    }
+    a = warp_sum(a);
+    b = warp_sum(b);
+    if (lane == 0) {
+      part[3 * (u - first)] = a;
+      part[3 * (u - first) + 1] = b;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double dr = 0.0, dm = 0.0;  // sum G (y - mean) w_c, sum G s_c
+    for (int k = 0; k < last - first; ++k) {
+      const float w = weight[ch0 + unit_of(p, first + k).c];
+      dr += part[3 * k + 1] * static_cast<double>(w);
+      dm += part[3 * k] * static_cast<double>(__fmul_rn(rstd, w));
+    }
+    total[0] = dr;
+    total[1] = dm;
+  }
+  cl.sync();
+  if (threadIdx.x == 0) {
+    double sums[2];
+    cluster_sum2(cl, total, p.cluster, sums);
+    const double n = static_cast<double>(p.cpg) * p.hw;
+    const double r = rstd;
+    // rsqrt's gradient; none where the clamp held var at 0.
+    const double dvar = var < 0.0f ? 0.0 : -0.5 * sums[0] * (r * r * r);
+    const double dmean = -sums[1] - 2.0 * static_cast<double>(mean) * dvar;
+    coef[0] = static_cast<float>(dvar / n);
+    coef[1] = static_cast<float>(dmean / n);
+  }
+  cl.sync();
+
+  // dx = bf16(bf16(2 (k1 q) + k0) + bf16(G s_c)), and its sums.
+  const float k1 = coef[0], k0 = coef[1];
+  for (int u = first + warp; u < last; u += kGnWarps) {
+    const Unit t = unit_of(p, u);
+    const int ch = ch0 + t.c;
+    const __nv_bfloat16 bb = __float2bfloat16_rn(bias[ch]);
+    const float sc = __fmul_rn(rstd, weight[ch]);
+    double d = 0.0;
+    if (p.vec) {
+      const bf2 bb2 = __bfloat162bfloat162(bb);
+      const uint4* xs = reinterpret_cast<const uint4*>(xg + t.start);
+      const uint4* gs = reinterpret_cast<const uint4*>(gg + t.start);
+      const uint4* xk = reinterpret_cast<const uint4*>(xc + (t.start - base));
+      const uint4* gk = reinterpret_cast<const uint4*>(gc + (t.start - base));
+      uint4* dst = reinterpret_cast<uint4*>(dxg + t.start);
+      for (long long v = lane; v < t.n / kVec; v += 32) {
+        const uint4 xw = p.cached ? xk[v] : __ldg(xs + v);
+        const uint4 gw = p.cached ? gk[v] : __ldg(gs + v);
+        const bf2* xh = reinterpret_cast<const bf2*>(&xw);
+        const bf2* gh = reinterpret_cast<const bf2*>(&gw);
+        uint4 out;
+        bf2* o = reinterpret_cast<bf2*>(&out);
+        float sv[kVec];
+#pragma unroll
+        for (int j = 0; j < kVec / 2; ++j) {
+          const float2 q = __bfloat1622float2(__hadd2_rn(xh[j], bb2));
+          const float2 gf = __bfloat1622float2(gh[j]);
+          const float t0 = __fmul_rn(k1, q.x), t1 = __fmul_rn(k1, q.y);
+          const bf2 dq = __floats2bfloat162_rn(
+              __fadd_rn(__fadd_rn(t0, t0), k0),
+              __fadd_rn(__fadd_rn(t1, t1), k0));
+          const bf2 dd =
+              __floats2bfloat162_rn(__fmul_rn(gf.x, sc), __fmul_rn(gf.y, sc));
+          o[j] = __hadd2_rn(dq, dd);
+          const float2 of = __bfloat1622float2(o[j]);
+          sv[2 * j] = of.x;
+          sv[2 * j + 1] = of.y;
+        }
+        dst[v] = out;
+        d += sum8(sv);
+      }
+    } else {
+      const float bbf = __bfloat162float(bb);
+      for (long long i = lane; i < t.n; i += 32) {
+        const __nv_bfloat16 xw =
+            p.cached ? xc[t.start - base + i] : xg[t.start + i];
+        const __nv_bfloat16 gw =
+            p.cached ? gc[t.start - base + i] : gg[t.start + i];
+        const float q = round_bf16(__fadd_rn(__bfloat162float(xw), bbf));
+        const float t0 = __fmul_rn(k1, q);
+        const float o = round_bf16(
+            __fadd_rn(round_bf16(__fadd_rn(__fadd_rn(t0, t0), k0)),
+                      round_bf16(__fmul_rn(__bfloat162float(gw), sc))));
+        dxg[t.start + i] = __float2bfloat16_rn(o);
+        d += o;
+      }
+    }
+    d = warp_sum(d);
+    if (lane == 0) part[3 * (u - first) + 2] = d;
+  }
+  __syncthreads();
+  double* out = partial + (grp * p.units + first) * 3;
+  for (int k = threadIdx.x; k < 3 * (last - first); k += kGnThreads) {
+    out[k] = part[k];
+  }
+}
+
+// The per-channel gradients, a block a channel: over the batch (strided
+// over the threads, then a fixed tree) and the channel's units in order.
+__global__ void __launch_bounds__(kGnSumThreads)
+    gn_bf16_params_kernel(const double* __restrict__ partial,
+                          const float* __restrict__ stats,
+                          float* __restrict__ dbias,
+                          float* __restrict__ dweight,
+                          float* __restrict__ dbeta, long long batch,
+                          GnPlan p, float eps) {
+  __shared__ double red[3][kGnSumThreads / 32];
+  const int ch = blockIdx.x;
+  const int group = ch / p.cpg, c = ch % p.cpg;
+  double a = 0.0, b = 0.0, d = 0.0;
+  for (long long s = threadIdx.x; s < batch; s += kGnSumThreads) {
+    const long long grp = s * p.groups + group;
+    const double r = gn_rstd(stats[2 * grp + 1], eps);
+    const double* q =
+        partial + (grp * p.units + static_cast<long long>(c) * p.parts) * 3;
+    double ua = 0.0, ub = 0.0, ud = 0.0;
+    for (int k = 0; k < p.parts; ++k) {
+      ua += q[3 * k];
+      ub += q[3 * k + 1];
+      ud += q[3 * k + 2];
+    }
+    a += ua;
+    b += ub * r;
+    d += ud;
+  }
+  a = warp_sum(a);
+  b = warp_sum(b);
+  d = warp_sum(d);
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) {
+    red[0][warp] = a;
+    red[1][warp] = b;
+    red[2][warp] = d;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kGnSumThreads / 32; ++w) {
+      a += red[0][w];
+      b += red[1][w];
+      d += red[2][w];
+    }
+    dbeta[ch] = static_cast<float>(a);
+    dweight[ch] = static_cast<float>(b);
+    dbias[ch] = __bfloat162float(__double2bfloat16(d));
+  }
+}
+
+constexpr int kGnMaxDevices = 64;
+
+// Launch `kernel` over `clusters` clusters of p.cluster blocks. A launch
+// past 48 KB of dynamic shared memory raises the kernel's limit on its
+// device first, only where it is below the launch's (a driver call):
+// `allowed` is the limit set so far, one array for each kernel (the
+// instantiations differ by the kernel's parameters), raised under a lock.
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), const GnPlan& p,
+                    long long clusters, cudaStream_t s, Args... args) {
+  static std::atomic<size_t> allowed[kGnMaxDevices];
+  static std::mutex raising;
+  if (p.smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev >= kGnMaxDevices || allowed[dev].load() < p.smem) {
+      std::lock_guard<std::mutex> hold(raising);
+      if (dev >= kGnMaxDevices || allowed[dev].load() < p.smem) {
+        e = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(p.smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+        if (dev < kGnMaxDevices) allowed[dev].store(p.smem);
+      }
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * p.cluster));
+  cfg.blockDim = dim3(kGnThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(p.cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
+}
+
+}  // namespace
+
+// Units a (sample, group) of `c` channels of `hw` values in `groups`
+// groups: the backward's partial sums hold 3 doubles a unit.
+extern "C" int dvsg_group_norm_bf16_units(long long c, long long hw,
+                                          int groups) {
+  return gn_plan(c, hw, groups, 2, 3, true).units;
+}
+
+// x bf16 (batch, c, hw) dense, bias / weight / beta f32 (c) -> y bf16 like
+// x, stats f32 (batch, groups, 2): mean and var before the clamp.
+extern "C" int dvsg_group_norm_bf16_fwd(const void* x, const void* bias,
+                                        const void* weight, const void* beta,
+                                        void* y, void* stats, long long batch,
+                                        long long c, long long hw, int groups,
+                                        float eps, void* stream) {
+  if (batch <= 0 || c <= 0 || hw <= 0) return 0;
+  const GnPlan p = gn_plan(c, hw, groups, 1, 2, aligned16(x) && aligned16(y));
+  return launch_clusters(
+      gn_bf16_fwd_kernel, p, batch * groups, static_cast<cudaStream_t>(stream),
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(bias),
+      static_cast<const float*>(weight), static_cast<const float*>(beta),
+      static_cast<__nv_bfloat16*>(y), static_cast<float*>(stats), p, eps);
+}
+
+// g bf16 like x, x, the forward's stats, bias and weight -> dx bf16 like x,
+// dbias / dweight / dbeta f32 (c); `partial` holds batch * groups * units
+// * 3 doubles.
+extern "C" int dvsg_group_norm_bf16_bwd(
+    const void* g, const void* x, const void* stats, const void* bias,
+    const void* weight, void* dx, void* partial, void* dbias, void* dweight,
+    void* dbeta, long long batch, long long c, long long hw, int groups,
+    float eps, void* stream) {
+  if (batch <= 0 || c <= 0 || hw <= 0) return 0;
+  const GnPlan p = gn_plan(c, hw, groups, 2, 3,
+                           aligned16(g) && aligned16(x) && aligned16(dx));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rc = launch_clusters(
+      gn_bf16_bwd_kernel, p, batch * groups, s,
+      static_cast<const __nv_bfloat16*>(g),
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(stats),
+      static_cast<const float*>(bias), static_cast<const float*>(weight),
+      static_cast<__nv_bfloat16*>(dx), static_cast<double*>(partial), p, eps);
+  if (rc != 0) return rc;
+  gn_bf16_params_kernel<<<static_cast<unsigned>(c), kGnSumThreads, 0, s>>>(
+      static_cast<const double*>(partial), static_cast<const float*>(stats),
+      static_cast<float*>(dbias), static_cast<float*>(dweight),
+      static_cast<float*>(dbeta), batch, p, eps);
   return static_cast<int>(cudaGetLastError());
 }

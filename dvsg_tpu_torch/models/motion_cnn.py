@@ -31,7 +31,9 @@ rounds, which is not where PyTorch's fused bf16 ops round:
   rounded to bf16 first (a weakly typed constant takes the array's type;
   ops/bf16_round.py: on the card one kernel does the whole chain);
 * GroupNorm takes its statistics and normalizes in f32, rounding once;
-  it normalizes the conv's f32 sum with its bias, as XLA's fusion does;
+  it normalizes the conv's f32 sum with its bias, as XLA's fusion does
+  (ops/bf16_round.py: on the card one kernel does the bias add and the
+  whole GroupNorm, one more its gradient);
 * a correlation's products and sum are f32, rounded once, then scaled;
 * the heads are f32; the stacked head reads the trunk's last GELU
   unrounded (XLA drops the rounding before the reference's cast to f32).
@@ -43,10 +45,9 @@ cast of a bf16 value to f32 rounds its own share of the gradient; the
 correlation's gradient sums its shifts one by one in bf16 (autograd
 functions whose forward is the plain computation).
 
-Under a profiler the bf16 rounding passes (GELU, the bias add, the casts
-to f32 and GroupNorm's normalize, forward and backward) run inside the
-span ``bf16_round`` and the correlation's gradient inside ``corr_bwd``
-(``utils/metrics.py::span``).
+Under a profiler the bf16 rounding passes (GELU, the bias adds and the
+GroupNorm, forward and backward) run inside the span ``bf16_round`` and
+the correlation's gradient inside ``corr_bwd`` (``utils/metrics.py::span``).
 
 Public functions keep the reference's NHWC layouts.
 """
@@ -111,56 +112,29 @@ def _bf16_valued(w: torch.Tensor) -> torch.Tensor:
     return w + (w.to(torch.bfloat16).float() - w).detach()
 
 
-class _CastToF32(torch.autograd.Function):
-    """One of the reference's casts of a bf16 value to f32, applied to the
-    f32 sum ``y`` that XLA keeps in its place: the value is ``y``, or
-    ``y`` rounded to bf16 with ``rounded``; the gradient is rounded to
-    bf16, since each cast's transpose rounds its own share."""
+class _GroupNormBf16(torch.autograd.Function):
+    """A bf16 conv's bias add and the GroupNorm after it, as the reference
+    rounds them, and their gradient: the registered ops of
+    ``ops/bf16_round.py``, one kernel forward and one backward on the
+    card, the plain op chain and the gradient autograd takes through it on
+    the CPU."""
 
     @staticmethod
-    def forward(ctx, y, rounded):
+    def forward(ctx, x, bias, weight, beta, groups, eps):
         with span("bf16_round"):
-            return y.to(torch.bfloat16).float() if rounded else y.view_as(y)
-
-    @staticmethod
-    def backward(ctx, g):
-        with span("bf16_round"):
-            return g.to(torch.bfloat16).float(), None
-
-
-def _bias_grad_bf16(g: torch.Tensor) -> torch.Tensor:
-    """The bias gradient of a bf16 bias add, NCHW ``g`` → (C,) f32.
-
-    XLA's CPU backend (the reference on the CPU) sums a bf16 reduction
-    sequentially in bf16, rows in NHWC order, rounding after every add;
-    that is copied here. On the card the sum runs in f32 and rounds once
-    (a serial scan there would cost one launch per row)."""
-    if g.is_cuda:
-        return g.sum(dim=(0, 2, 3)).float()
-    acc = torch.zeros(g.shape[1], dtype=g.dtype)
-    for row in g.permute(0, 2, 3, 1).reshape(-1, g.shape[1]):
-        acc = acc + row
-    return acc.float()
-
-
-class _BiasAddBf16(torch.autograd.Function):
-    """``y + bias`` of a bf16 conv result ``y`` and the bias cast to bf16,
-    rounded to bf16, or left f32 with ``f32_out`` (XLA keeps the sum f32
-    where it fuses it into a GroupNorm's normalize). The gradient rounds
-    to bf16, as the reference's bf16 add does, and the bias's is
-    ``_bias_grad_bf16``."""
-
-    @staticmethod
-    def forward(ctx, y, bias, f32_out):
-        with span("bf16_round"):
-            b = bias.to(y.dtype)[:, None, None]
-            return y.float() + b.float() if f32_out else y + b
+            y, stats = bf16_round.group_norm_bf16(x, bias, weight, beta,
+                                                  groups, eps)
+        ctx.save_for_backward(x, stats, bias, weight)
+        ctx.groups, ctx.eps = groups, eps
+        return y
 
     @staticmethod
     def backward(ctx, g):
+        x, stats, bias, weight = ctx.saved_tensors
         with span("bf16_round"):
-            g = g.to(torch.bfloat16)
-            return g, _bias_grad_bf16(g), None
+            grads = bf16_round.group_norm_bf16_bwd(
+                g, x, stats, bias, weight, ctx.groups, ctx.eps)
+        return *grads, None, None
 
 
 class SameConv2d(nn.Conv2d):
@@ -189,8 +163,8 @@ class SameConv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.bfloat16:
-            return _BiasAddBf16.apply(self.unbiased_bf16(x), self.bias,
-                          False)
+            return bf16_round.BiasAddBf16.apply(self.unbiased_bf16(x),
+                                                self.bias)
         ph, pw = self._pads(x)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             return F.conv2d(x, self.weight, self.bias, self.stride[0],
@@ -210,24 +184,14 @@ def conv_norm(conv: SameConv2d, norm: nn.GroupNorm, x: torch.Tensor
     bf16. XLA fuses the conv's bias add into the normalize and keeps that
     sum in f32 there (the statistics read it rounded), so this does too.
     The statistics and the normalize each cast the input to f32, so each
-    path's share of its gradient is rounded to bf16 before they add."""
+    path's share of its gradient is rounded to bf16 before they add
+    (``ops/bf16_round.py``: one kernel each way on the card, which takes
+    the statistics and sums in its own order; the op chain on the CPU)."""
     if x.dtype != torch.bfloat16:
         return norm(conv(x))
-    y = _BiasAddBf16.apply(conv.unbiased_bf16(x), conv.bias, True)
-    with span("bf16_round"):
-        b, c = y.shape[:2]
-        grp = norm.num_groups
-        g = _CastToF32.apply(y, True).reshape(b, grp, -1)
-        mean = g.mean(dim=-1, keepdim=True)
-        var = torch.clamp((g * g).mean(dim=-1, keepdim=True) - mean * mean,
-                          min=0.0)
-        y = _CastToF32.apply(y, False).reshape(b, grp, c // grp,
-                                                 *y.shape[2:])
-        y = y - mean.reshape(b, grp, 1, 1, 1)
-        y = y * (torch.rsqrt(var + norm.eps).reshape(b, grp, 1, 1, 1)
-                 * norm.weight.reshape(grp, c // grp, 1, 1))
-        y = y.reshape(b, c, *y.shape[3:]) + norm.bias.reshape(c, 1, 1)
-        return y.to(x.dtype)
+    return _GroupNormBf16.apply(conv.unbiased_bf16(x), conv.bias,
+                                norm.weight, norm.bias, norm.num_groups,
+                                norm.eps)
 
 
 class ResBlock(nn.Module):

@@ -21,8 +21,9 @@ The training step is fed one batch, rendered by the port, on both sides:
 rendering is f32 (held by the f32 parity tests), and an f32 ulp of an
 input pixel flips its bf16 rounding, which the step then amplifies. A
 bias gradient is a sequential bf16 sum over every pixel of the batch
-(``_bias_grad_bf16``), so one ulp anywhere upstream moves it; its worst
-element is printed, not held (PERF.md §7), and the median tensor is.
+(``bf16_round.bias_grad_bf16``), so one ulp anywhere upstream moves it;
+its worst element is printed, not held (PERF.md §7), and the median
+tensor is.
 """
 
 import dataclasses

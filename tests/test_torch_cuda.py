@@ -850,6 +850,162 @@ def test_gelu_on_the_card_never_takes_the_plain_path(dev, monkeypatch):
         assert gx.dtype == torch.bfloat16 and gx.shape == x.shape
 
 
+# The bf16 conv + GroupNorm calls of the quality bf16 train step at batch 32
+# (6 frames a clip): each pyramid level's (C, H, W).
+GN_LEVELS = [(64, 128, 128), (128, 64, 64), (256, 32, 32), (256, 16, 16)]
+GN_FRAMES, GN_GROUPS, GN_EPS = 192, 8, 1e-6
+
+
+def _gn_case(dev, c, h, w, seed=0, batch=GN_FRAMES):
+    """A conv's bf16 output without its bias, its bias, the norm's weight
+    and shift, and a bf16 cotangent, drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(shape, mu, sd):
+        return torch.randn(shape, generator=gen, device=dev) * sd + mu
+    return (t((batch, c, h, w), 0.3, 2.0).bfloat16(), t(c, 0.0, 0.1),
+            t(c, 1.0, 0.1), t(c, 0.0, 0.1),
+            t((batch, c, h, w), 0.0, 1.0).bfloat16())
+
+
+@pytest.mark.parametrize("shape", GN_LEVELS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_group_norm_bf16_kernels_against_the_chain(dev, shape):
+    """At each level's shape of the quality bf16 step, every output of
+    both kernels against the op chain's on the card and a float64 chain's
+    (``chip_smoke.gn_against_chain``): the forward within one bf16 ulp of
+    the chain's at the scale of the normalize's terms, off the float64
+    output in no more values than the chain's and within one ulp of it at
+    that scale (the share apart from the chain, and each one's most bf16
+    steps from the float64 output, are printed); the statistics no
+    farther from float64 ones than the chain's, group by group; dx off
+    the float64 dx in no more values than the chain's; each f32 gradient
+    no farther from float64 than the chain's in its worst channel. Two
+    runs byte-equal; one launch of each kernel a call."""
+    import chip_smoke
+    from dvsg_tpu_torch.ops import bf16_round
+    x, bias, weight, beta, g = _gn_case(dev, *shape)
+    args = (GN_GROUPS, GN_EPS)
+    runs = []
+    for _ in range(2):
+        before = bf16_round.LAUNCHES_GN_FWD, bf16_round.LAUNCHES_GN_BWD
+        y, stats = bf16_round.group_norm_bf16(x, bias, weight, beta, *args)
+        grads = bf16_round.group_norm_bf16_bwd(g, x, stats, bias, weight,
+                                               *args)
+        assert (bf16_round.LAUNCHES_GN_FWD - before[0],
+                bf16_round.LAUNCHES_GN_BWD - before[1]) == (1, 1)
+        runs.append([y, stats, *grads])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b) and a.stride() == b.stride()
+    rec = chip_smoke.gn_against_chain(runs[0], x, bias, weight, beta, g,
+                                      *args)
+    print(f"{shape}: out {100 * rec['out_differ'] / x.numel():.4f} % from "
+          f"the chain; kernel / chain: {rec}")
+
+
+def test_group_norm_bf16_kernels_take_any_group_count(dev):
+    """Group counts that divide C (a tensor-parallel shard's 4, 2, 1, and
+    one channel a group), an odd H x W and a view off 16 bytes (the scalar
+    paths), a group too large for a cluster's shared memory (read twice),
+    a batch of one: the forward within one ulp of the chain's at its
+    terms' scale, dx off the float64 chain's in no more values than the
+    chain's, give or take a ten-thousandth of them, bit-identical on a
+    second run."""
+    import chip_smoke
+    from dvsg_tpu_torch.ops import bf16_round
+    cases = [((4, 64, 32, 32), 4), ((4, 64, 32, 32), 2), ((4, 64, 32, 32), 1),
+             ((2, 16, 8, 8), 16), ((3, 32, 7, 9), 8), ((1, 256, 96, 96), 1),
+             ((2, 64, 128, 128), 8)]
+    for (b, c, h, w), groups in cases:
+        x, bias, weight, beta, g = _gn_case(dev, c, h, w, seed=c + h,
+                                            batch=b)
+        views = [(x, g)]
+        if h * w % 8 == 0:
+            xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            xs[1:].copy_(x.flatten())
+            views.append((xs[1:].view(x.shape), g))
+        for xv, gv in views:
+            outs = []
+            for _ in range(2):
+                y, stats = bf16_round.group_norm_bf16(xv, bias, weight, beta,
+                                                      groups, GN_EPS)
+                outs.append([y, stats, *bf16_round.group_norm_bf16_bwd(
+                    gv, xv, stats, bias, weight, groups, GN_EPS)])
+            for a, a2 in zip(*outs):
+                assert torch.equal(a, a2)
+            want, st = bf16_round.group_norm_bf16_plain(xv, bias, weight,
+                                                        beta, groups, GN_EPS)
+            assert chip_smoke.gn_ulps_at_scale(
+                outs[0][0], want, xv, bias, weight, beta, st, groups,
+                GN_EPS) <= 1.0, (b, c, h, w)
+            ref = chip_smoke.gn_chain64(xv, bias, weight, beta, gv, groups,
+                                        GN_EPS)
+            dxc = bf16_round.group_norm_bf16_grad_plain(
+                gv, xv, st, bias, weight, groups, GN_EPS)[0]
+            nk = int((outs[0][2] != ref[2]).sum())
+            nc = int((dxc != ref[2]).sum())
+            assert nk <= nc + x.numel() // 10000, (b, c, h, w, groups, nk, nc)
+
+
+def test_group_norm_bf16_kernels_refuse_what_they_do_not_take(dev):
+    """A channels-last or f32 x, a group count that does not divide C, f32
+    parameters of another length or on the CPU raise; a channels-last
+    cotangent is copied to NCHW."""
+    from dvsg_tpu_torch.ops import bf16_round
+    x, bias, weight, beta, g = _gn_case(dev, 32, 8, 8, batch=2)
+    bad = [((x.contiguous(memory_format=torch.channels_last), bias, weight,
+             beta, 8, GN_EPS), "NCHW contiguous"),
+           ((x.float(), bias, weight, beta, 8, GN_EPS), "bf16"),
+           ((x, bias, weight, beta, 5, GN_EPS), "do not divide"),
+           ((x, bias[:16], weight, beta, 8, GN_EPS), "parameters"),
+           ((x, bias.cpu(), weight, beta, 8, GN_EPS), "parameters"),
+           ((x, bias.double(), weight, beta, 8, GN_EPS), "parameters")]
+    for args, match in bad:
+        with pytest.raises(ValueError, match=match):
+            bf16_round.group_norm_bf16(*args)
+    _, stats = bf16_round.group_norm_bf16(x, bias, weight, beta, 8, GN_EPS)
+    with pytest.raises(ValueError, match="g must be bf16"):
+        bf16_round.group_norm_bf16_bwd(g.float(), x, stats, bias, weight, 8,
+                                       GN_EPS)
+    want = bf16_round.group_norm_bf16_bwd(g, x, stats, bias, weight, 8,
+                                          GN_EPS)
+    got = bf16_round.group_norm_bf16_bwd(
+        g.contiguous(memory_format=torch.channels_last), x, stats, bias,
+        weight, 8, GN_EPS)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b) and a.is_contiguous()
+
+
+def test_bf16_train_step_launches_the_group_norm_kernels(dev, monkeypatch):
+    """A bf16 train step of the corr model launches each GroupNorm kernel
+    twice a ResBlock (2 x levels x blocks) and never the op chain: the
+    plain functions refuse a CUDA tensor."""
+    from dvsg_tpu_torch.config import TrainConfig
+    from dvsg_tpu_torch.models import motion_cnn
+    from dvsg_tpu_torch.ops import bf16_round
+    from dvsg_tpu_torch.train import loop
+
+    def refusing(chain):
+        def refuse(*args):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise AssertionError("a CUDA tensor reached the plain path")
+            return chain(*args)
+        return refuse
+    for name in ("group_norm_bf16_plain", "group_norm_bf16_grad_plain"):
+        monkeypatch.setattr(bf16_round, name,
+                            refusing(getattr(bf16_round, name)))
+    params, mcfg, _ = _fast_setup(n_clips=1, frames=8)
+    mcfg, params = _variant(mcfg, "bf16", params)
+    cfg = TrainConfig(model=mcfg, batch_size=2, steps=4, warmup_steps=1)
+    state = loop.build_state(cfg, params, dev)
+    before = bf16_round.LAUNCHES_GN_FWD, bf16_round.LAUNCHES_GN_BWD
+    aux = loop.train_step(state, loop.step_generator(0, 0), cfg)
+    assert all(np.isfinite(float(v)) for v in aux.values())
+    n = 2 * motion_cnn.pyramid_levels(mcfg) * mcfg.blocks_per_level
+    assert (bf16_round.LAUNCHES_GN_FWD - before[0],
+            bf16_round.LAUNCHES_GN_BWD - before[1]) == (n, n)
+
+
 def test_profiler_traces_the_kernel_on_the_card(dev, tmp_path):
     """torch.profiler sees the ctypes-launched offsets kernel on the card:
     the summary counts it once a chunk and the device lane has an idle

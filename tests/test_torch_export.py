@@ -355,8 +355,9 @@ def test_export_for_the_card_without_one(card_artifacts, frames, mode):
 
 def test_export_for_the_card_takes_the_card_branches():
     """bf16 convolutions stay bf16 in a trace for the card (cuDNN's f32
-    accumulation); the CPU's trace runs them in f32. The bf16 GELU is the
-    registered op in the card's trace (its kernel on the card)."""
+    accumulation); the CPU's trace runs them in f32. The bf16 GELU and the
+    bf16 conv bias + GroupNorm are the registered ops in the card's trace
+    (their kernels on the card)."""
     import dataclasses
     cfg = CFG.replace(model=dataclasses.replace(MCFG, dtype="bfloat16"))
 
@@ -369,8 +370,9 @@ def test_export_for_the_card_takes_the_card_branches():
                                           device="cpu")
     assert torch.bfloat16 in conv_dtypes(card)
     assert torch.bfloat16 not in conv_dtypes(cpu)
-    assert any("dvsg_torch.gelu_bf16" in str(n.target)
-               for n in card.program.graph.nodes)
+    for op in ("gelu_bf16", "group_norm_bf16"):
+        assert any(f"dvsg_torch.{op}." in str(n.target)
+                   for n in card.program.graph.nodes), op
     assert card.in_avals[0] == cpu.in_avals[0] == [[2, 4, H, W, 3],
                                                    "uint8"]
 
