@@ -40,8 +40,11 @@ class ModelConfig:
     channels: int = 3                     # input channels per frame
     dtype: str = "float32"                # compute dtype: float32 | bfloat16
     arch: str = "corr"                    # corr (cost-volume) | stacked
+                                          # | pwc (PWC-Net)
     corr_radius: int = 3                  # cost-volume displacement radius
-                                          # (in coarse-grid cells)
+                                          # (in coarse-grid cells; pwc: in
+                                          # each level's pixels, 4 as
+                                          # published)
 
     def __post_init__(self):
         gh, gw = self.grid_size
@@ -51,6 +54,19 @@ class ModelConfig:
                 f"model_size {self.model_size} must be divisible by "
                 f"grid_size {self.grid_size}"
             )
+        if self.arch == "pwc":
+            # Six stride-2 levels, and the head reads level 4 and flow₂
+            # pooled 4 x 4: the grid is the model size over 16.
+            if mh % 64 or mw % 64:
+                raise ValueError(f"arch 'pwc' needs model_size divisible "
+                                 f"by 64, got {self.model_size}")
+            if (gh, gw) != (mh // 16, mw // 16):
+                raise ValueError(f"arch 'pwc' needs grid_size = model_size"
+                                 f" / 16, got {self.grid_size} for "
+                                 f"{self.model_size}")
+            if self.dtype != "float32":
+                raise ValueError(f"arch 'pwc' runs in float32 only, got "
+                                 f"dtype {self.dtype!r}")
 
 
 @dataclasses.dataclass(frozen=True)

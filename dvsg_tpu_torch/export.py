@@ -213,6 +213,11 @@ def _export_for_card(cfg: StabilizeConfig, params: dict, lead: tuple,
     needed). The program's weights are the real CPU parameters, and the
     tables it builds from numpy are real CPU constants that the graph
     copies to the card."""
+    if cfg.model.arch == "pwc" and not torch.backends.cuda.is_built():
+        # F.grid_sample's fake-CUDA decomposition needs a CUDA build.
+        raise ValueError("arch 'pwc' is exported for the card on a host "
+                         "whose PyTorch is built with CUDA; this one is "
+                         "not (its feature warp does not trace here)")
     prog = _ChunkProgram(cfg, build_model(cfg.model, params,
                                           torch.device("cpu")))
     real = dict(prog.named_parameters())

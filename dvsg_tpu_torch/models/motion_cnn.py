@@ -1,6 +1,6 @@
 """Motion-estimation CNN: sliding frame window → coarse offsets.
 
-Two architectures (``cfg.arch``), as in the reference:
+Three architectures (``cfg.arch``); the first two as in the reference:
 
 * ``corr``: a siamese per-frame encoder (stem conv + stride-2 ResBlock
   pyramid down to the coarse grid), PWC-style local correlation volumes of
@@ -8,7 +8,18 @@ Two architectures (``cfg.arch``), as in the reference:
   head;
 * ``stacked``: the same trunk over the channel-stacked window
   (``window * channels`` channels), then a float32 ``head_conv`` → GELU →
-  ``head_out``.
+  ``head_out``;
+* ``pwc``: PWC-Net (Sun et al., CVPR 2018, arXiv:1709.02371; NVlabs'
+  ``PWCDCNet``) as the motion estimator, float32 only: a six-level
+  feature pyramid per frame, then per pair of the window's last frame
+  (the reference, a) and another window frame (b) a coarse-to-fine
+  decoder (cost volume of radius ``corr_radius`` = 4 on levels 6 to 2,
+  b warped by the upsampled flow below level 6, dense conv estimators,
+  the dilated context network at level 2) giving the flow a → b at level
+  2; see ``PwcEncoder`` and ``MotionEstimator.pwc_flow``. Its head is not
+  PWC-Net's: each pair's flow is average-pooled 4 x 4 onto the grid,
+  concatenated with a's level-4 features and fed to the corr arch's
+  three-conv head.
 
 Parameter names follow the reference checkpoints' paths
 (``encoder.stem``, ``encoder.down{l}``, ``encoder.res{l}_{b}.conv1``,
@@ -47,7 +58,19 @@ functions whose forward is the plain computation).
 
 Under a profiler the bf16 rounding passes (GELU, the bias adds and the
 GroupNorm, forward and backward) run inside the span ``bf16_round`` and
-the correlation's gradient inside ``corr_bwd`` (``utils/metrics.py::span``).
+the correlation's gradient inside ``corr_bwd`` (``utils/metrics.py::span``);
+the pwc arch's cost volumes inside ``pwc_corr`` and its feature warps
+inside ``pwc_warp`` (forward only: their backward is autograd's, of
+plain ops). ``PWC_FRAMES`` and ``PWC_PAIRS`` count the pyramids and the
+decoder passes the pwc arch computes.
+
+The pwc arch departs from ``PWCDCNet`` in three ways, besides its head:
+its input is the port's normalized frame (``resize.downscale_norm``,
+centered at 0) at the model size, not a 0-255 image at PWC-Net's crop;
+its cost volume is the port's ``correlation_volume`` (zero padding, the
+channel mean) in place of the CUDA correlation package; and each pair's
+flow is read at level 2 only, without PWC-Net's multi-scale training
+loss (the port's self-supervised loss trains it through the head).
 
 Public functions keep the reference's NHWC layouts.
 """
@@ -55,6 +78,7 @@ Public functions keep the reference's NHWC layouts.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -63,12 +87,27 @@ import torch.nn.functional as F
 from dvsg_tpu_torch.config import ModelConfig
 from dvsg_tpu_torch.ops import bf16_round
 from dvsg_tpu_torch.ops import grid as grid_ops
+from dvsg_tpu_torch.ops.grouped import each
 from dvsg_tpu_torch.utils.metrics import span
 
 GN_GROUPS = 8
 GN_EPS = 1e-6
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_ARCHS = ("corr", "stacked")
+_ARCHS = ("corr", "stacked", "pwc")
+
+# PWC-Net (PWCDCNet): pyramid widths of levels 1-6, the dense estimator's
+# conv widths, the context network's (width, dilation) convs, the flow
+# scale (flow is regressed in units of 1/20 of a level-0 pixel), and the
+# level whose features the head reads.
+PWC_WIDTHS = (16, 32, 64, 96, 128, 196)
+PWC_DENSE = (128, 128, 96, 64, 32)
+PWC_CONTEXT = ((128, 1), (128, 2), (128, 4), (96, 8), (64, 16), (32, 1))
+PWC_FLOW_SCALE = 20.0
+PWC_HEAD_LEVEL = 4
+# Pyramids encoded and decoder passes run by the pwc arch (padding rows of
+# a fixed-size call included), in the process.
+PWC_FRAMES = 0
+PWC_PAIRS = 0
 
 
 class _GeluBf16(torch.autograd.Function):
@@ -275,15 +314,19 @@ class FrameEncoder(nn.Module):
 
 
 def correlation_volume(ref: torch.Tensor, other: torch.Tensor,
-                       radius: int) -> torch.Tensor:
+                       radius: int, scale: Optional[float] = None
+                       ) -> torch.Tensor:
     """Local cost volumes, NCHW: ref (B, F, gh, gw) against each of
     other (B, K, F, gh, gw) → (B, K, (2r+1)^2, gh, gw). Channel
     dy * (2r+1) + dx holds sum_f ref * other[shifted by (dy - r, dx - r)]
-    * F^-0.5, with ``other`` zero-padded by ``radius``. On bf16 features
-    the products and sum are f32, rounded once, then scaled in bf16."""
+    * scale, with ``other`` zero-padded by ``radius``; ``scale`` defaults
+    to the corr arch's F^-0.5 (the pwc arch passes 1 / F). On bf16
+    features the products and sum are f32, rounded once, then scaled in
+    bf16."""
     f, gh, gw = ref.shape[-3:]
     k = 2 * radius + 1
-    scale = float(f) ** -0.5
+    if scale is None:
+        scale = float(f) ** -0.5
     low = ref.dtype == torch.bfloat16
     pad = F.pad(other, (radius, radius, radius, radius))
     ref = ref[:, None]
@@ -334,6 +377,74 @@ class _CorrInputBf16(torch.autograd.Function):
             return d_ref, d_pad[..., r:r + gh, r:r + gw], None
 
 
+def _leaky(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.1)
+
+
+def _conv3(cin: int, cout: int, stride: int = 1, dilation: int = 1
+           ) -> nn.Conv2d:
+    """PWC-Net's 3 x 3 conv: PyTorch's symmetric padding by the dilation
+    (a stride-2 conv pads (1, 1), where ``SameConv2d`` pads (0, 1))."""
+    return nn.Conv2d(cin, cout, 3, stride, padding=dilation,
+                     dilation=dilation)
+
+
+def _deconv(cin: int) -> nn.ConvTranspose2d:
+    """PWC-Net's 4 x 4 stride-2 transposed conv to 2 channels."""
+    return nn.ConvTranspose2d(cin, 2, 4, 2, 1)
+
+
+class PwcEncoder(nn.Module):
+    """PWC-Net's feature pyramid: per level l = 1..6 a stride-2 conv and
+    two convs, each followed by LeakyReLU(0.1). NVlabs' names: level l's
+    convs are ``conv{l}a``, ``conv{l}aa``, ``conv{l}b``, level 6's
+    ``conv6aa`` (the stride-2 one), ``conv6a``, ``conv6b``."""
+
+    def __init__(self, cin: int):
+        super().__init__()
+        for level, width in enumerate(PWC_WIDTHS, 1):
+            for i, name in enumerate(self.names(level)):
+                self.add_module(name, _conv3(cin, width, 2 if i == 0 else 1))
+                cin = width
+
+    @staticmethod
+    def names(level: int) -> tuple:
+        if level == 6:
+            return ("conv6aa", "conv6a", "conv6b")
+        return (f"conv{level}a", f"conv{level}aa", f"conv{level}b")
+
+    def forward(self, x: torch.Tensor) -> tuple:
+        """NCHW frames → levels 2..6 (level 1 feeds only level 2)."""
+        out = []
+        for level in range(1, 7):
+            for name in self.names(level):
+                x = _leaky(getattr(self, name)(x))
+            if level >= 2:
+                out.append(x)
+        return tuple(out)
+
+
+def feature_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """PWC-Net's warp (NVlabs' ``warp``): x (B, C, H, W) sampled
+    bilinearly at p + flow(p) (flow (B, 2, H, W), (u, v) in pixels),
+    align-corners coordinates, zero outside the map, times the mask of
+    samples whose four taps lie inside (a warped map of ones >= 0.9999).
+    Differentiable in x and in flow; the mask carries no gradient."""
+    b, _, h, w = x.shape
+    xs = torch.arange(w, dtype=flow.dtype, device=flow.device)
+    ys = torch.arange(h, dtype=flow.dtype, device=flow.device)
+    gx = 2.0 * (xs + flow[:, 0]) / max(w - 1, 1) - 1.0
+    gy = 2.0 * (ys[:, None] + flow[:, 1]) / max(h - 1, 1) - 1.0
+    grid = torch.stack([gx, gy], dim=-1)
+    out = F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=True)
+    with torch.no_grad():
+        ones = torch.ones((b, 1, h, w), dtype=x.dtype, device=x.device)
+        mask = F.grid_sample(ones, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+    return out * (mask >= 0.9999).to(x.dtype)
+
+
 class MotionEstimator(nn.Module):
     """The motion CNN of ``cfg.arch``; the parameter tree of one
     checkpoint."""
@@ -350,12 +461,86 @@ class MotionEstimator(nn.Module):
             self.head_conv = SameConv2d(feats, feats, 3)
             self.head_out = SameConv2d(feats, 2, 3)
             return
-        self.encoder = FrameEncoder(cfg)
-        n_corr = (cfg.window - 1) * (2 * cfg.corr_radius + 1) ** 2
-        self.head_conv1 = SameConv2d(n_corr + self.encoder.out_features,
-                                     128, 3)
+        if cfg.arch == "pwc":
+            self.encoder = PwcEncoder(cfg.channels)
+            self._add_pwc_decoder()
+            head_in = 2 * (cfg.window - 1) + PWC_WIDTHS[PWC_HEAD_LEVEL - 1]
+        else:
+            self.encoder = FrameEncoder(cfg)
+            n_corr = (cfg.window - 1) * (2 * cfg.corr_radius + 1) ** 2
+            head_in = n_corr + self.encoder.out_features
+        self.head_conv1 = SameConv2d(head_in, 128, 3)
         self.head_conv2 = SameConv2d(128, 128, 3)
         self.head_out = SameConv2d(128, 2, 3)
+
+    def _add_pwc_decoder(self) -> None:
+        """PWCDCNet's estimators, NVlabs' names: per level l = 6..2 the
+        dense convs ``conv{l}_0..4``, ``predict_flow{l}`` and, above level
+        2, ``deconv{l}`` (the flow's) and ``upfeat{l}`` (the features');
+        the context network ``dc_conv1..7``."""
+        n_corr = (2 * self.cfg.corr_radius + 1) ** 2
+        for level in range(6, 1, -1):
+            cin = n_corr if level == 6 else (
+                n_corr + PWC_WIDTHS[level - 1] + 4)
+            for i, width in enumerate(PWC_DENSE):
+                self.add_module(f"conv{level}_{i}", _conv3(cin, width))
+                cin += width
+            self.add_module(f"predict_flow{level}", _conv3(cin, 2))
+            if level > 2:
+                self.add_module(f"deconv{level}", _deconv(2))
+                self.add_module(f"upfeat{level}", _deconv(cin))
+        for i, (width, dilation) in enumerate(PWC_CONTEXT, 1):
+            self.add_module(f"dc_conv{i}", _conv3(cin, width, 1, dilation))
+            cin = width
+        self.add_module("dc_conv7", _conv3(cin, 2))
+
+    def pwc_flow(self, a: tuple, b: tuple) -> torch.Tensor:
+        """PWC-Net's flow a → b at level 2, NCHW: a, b the pyramids
+        (levels 2..6, each (P, C_l, H_l, W_l)) of P pairs → (P, 2, H_2,
+        W_2), in units of 1/20 of a level-0 pixel (PWC-Net's)."""
+        global PWC_PAIRS
+        PWC_PAIRS += a[0].shape[0]
+        up_flow = up_feat = None
+        for level in range(6, 1, -1):
+            al, bl = a[level - 2], b[level - 2]
+            if up_flow is not None:
+                with span("pwc_warp"):
+                    bl = feature_warp(
+                        bl, up_flow * (PWC_FLOW_SCALE / 2 ** level))
+            with span("pwc_corr"):
+                vol = correlation_volume(al, bl[:, None],
+                                         self.cfg.corr_radius,
+                                         1.0 / al.shape[1])[:, 0]
+            x = _leaky(vol)
+            if up_flow is not None:
+                x = torch.cat([x, al, up_flow, up_feat], dim=1)
+            for i in range(len(PWC_DENSE)):
+                x = torch.cat([_leaky(getattr(self, f"conv{level}_{i}")(x)),
+                               x], dim=1)
+            flow = getattr(self, f"predict_flow{level}")(x)
+            if level > 2:
+                up_flow = getattr(self, f"deconv{level}")(flow)
+                up_feat = getattr(self, f"upfeat{level}")(x)
+        for i in range(1, len(PWC_CONTEXT) + 1):
+            x = _leaky(getattr(self, f"dc_conv{i}")(x))
+        return flow + self.dc_conv7(x)
+
+    def pwc_offsets(self, pyramids: tuple) -> torch.Tensor:
+        """The pwc arch's offsets, NCHW: pyramids (levels 2..6, each
+        (B, N, C_l, H_l, W_l)) of B windows → (B, 2, gh, gw). Each of the
+        N - 1 earlier frames is paired with the last, in window order."""
+        b, n = pyramids[0].shape[:2]
+        ref = pyramids[PWC_HEAD_LEVEL - 2][:, -1]
+        if n > 1:
+            a = tuple(p[:, -1:].expand(-1, n - 1, *p.shape[2:]).flatten(0, 1)
+                      for p in pyramids)
+            others = tuple(p[:, :-1].flatten(0, 1) for p in pyramids)
+            flow = F.avg_pool2d(self.pwc_flow(a, others), 4)
+            ref = torch.cat([flow.reshape(b, -1, *flow.shape[2:]), ref],
+                            dim=1)
+        x = gelu(self.head_conv1(ref))
+        x = gelu(self.head_conv2(x))
+        return torch.tanh(self.head_out(x)) * self.cfg.max_offset
 
     def head(self, feats: torch.Tensor) -> torch.Tensor:
         """Correlation volumes + regression head, NCHW: feats
@@ -392,11 +577,14 @@ _TRUNC_STD = 0.87962566103423978
 
 def init_params(cfg: ModelConfig, generator: torch.Generator
                 ) -> dict[str, torch.Tensor]:
-    """A fresh state dict for ``MotionEstimator(cfg)`` (either arch), drawn
+    """A fresh state dict for ``MotionEstimator(cfg)`` (any arch), drawn
     from ``generator`` as the reference initializes its model: conv
     kernels truncated normal (±2 sigma) with variance 1 / fan_in, biases
     zero, GroupNorm weight one, and a zero ``head_out`` kernel, so an
-    untrained model predicts zero offsets (the identity warp)."""
+    untrained model predicts zero offsets (the identity warp). The pwc
+    arch's PWC-Net convs and transposed convs are drawn as NVlabs draws
+    them: Kaiming normal on PyTorch's fan_in (gain sqrt(2)), biases zero;
+    its head by the rule above."""
     model = MotionEstimator(cfg)
     params = {}
     for name, p in model.state_dict().items():
@@ -404,6 +592,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator
             params[name] = torch.zeros_like(p)
         elif p.dim() == 1:                      # GroupNorm weight
             params[name] = torch.ones_like(p)
+        elif cfg.arch == "pwc" and not name.startswith("head_"):
+            w = torch.empty(p.shape, dtype=p.dtype, device=generator.device)
+            torch.nn.init.kaiming_normal_(w, mode="fan_in",
+                                          generator=generator)
+            params[name] = w.to(p.device)
         else:                                   # conv kernel, OIHW
             fan_in = p.shape[1] * p.shape[2] * p.shape[3]
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
@@ -432,7 +625,7 @@ def predict_offsets(model: MotionEstimator, windows: torch.Tensor
     frames = x.reshape(b, mh, mw, n, c).permute(0, 3, 1, 2, 4)
     feats = encode_frames(model, frames.reshape(b * n, mh, mw, c))
     return offsets_from_feature_windows(
-        model, feats.reshape(b, n, *feats.shape[1:]))
+        model, each(lambda f: f.reshape(b, n, *f.shape[1:]), feats))
 
 
 def predict_grid(model: MotionEstimator, windows: torch.Tensor,
@@ -444,23 +637,31 @@ def predict_grid(model: MotionEstimator, windows: torch.Tensor,
                                       out_height, out_width)
 
 
-def encode_frames(model: MotionEstimator, frames: torch.Tensor
-                  ) -> torch.Tensor:
+def encode_frames(model: MotionEstimator, frames: torch.Tensor):
     """Per-frame encoder pass: frames (B, Hm, Wm, C) → features
-    (B, gh, gw, F), in the compute dtype. The corr arch only.
+    (B, gh, gw, F), in the compute dtype; the pwc arch gives its pyramid,
+    a tuple of levels 2..6, each (B, H_l, W_l, C_l). Not the stacked arch.
 
     Sliding windows share window-1 of their frames, so callers encode each
     unique frame once and assemble feature windows.
     """
-    if model.cfg.arch != "corr":
-        raise ValueError("feature caching requires the corr architecture")
+    global PWC_FRAMES
+    if model.cfg.arch == "stacked":
+        raise ValueError("feature caching requires the corr architecture "
+                         "(or the pwc arch's pyramid)")
     x = frames.to(torch.float32).permute(0, 3, 1, 2).contiguous()
-    return model.encoder(x).permute(0, 2, 3, 1)
+    if model.cfg.arch == "pwc":
+        PWC_FRAMES += x.shape[0]
+    return each(lambda f: f.permute(0, 2, 3, 1), model.encoder(x))
 
 
-def offsets_from_feature_windows(model: MotionEstimator,
-                                 feat_windows: torch.Tensor) -> torch.Tensor:
-    """Head pass over cached features: (B, N, gh, gw, F) → offsets
-    (B, gh, gw, 2) in normalized units, |offset| <= max_offset."""
-    feats = feat_windows.permute(0, 1, 4, 2, 3).contiguous()
+def offsets_from_feature_windows(model: MotionEstimator, feat_windows
+                                 ) -> torch.Tensor:
+    """Head pass over cached features: (B, N, gh, gw, F) (the pwc arch: a
+    pyramid of such windows, one a level) → offsets (B, gh, gw, 2) in
+    normalized units, |offset| <= max_offset."""
+    feats = each(lambda f: f.permute(0, 1, 4, 2, 3).contiguous(),
+                 feat_windows)
+    if model.cfg.arch == "pwc":
+        return model.pwc_offsets(feats).permute(0, 2, 3, 1)
     return model.head(feats).permute(0, 2, 3, 1)

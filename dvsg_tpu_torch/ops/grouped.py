@@ -23,15 +23,28 @@ CHUNK_GROUP = 16
 ENCODE_GROUP = 20
 
 
-def in_groups(fn, x: torch.Tensor, size: int,
-              grouped: Optional[bool] = None) -> torch.Tensor:
+def each(fn, x):
+    """``fn`` over a tensor, or over each tensor of a tuple (the pwc arch's
+    pyramid levels), keeping the structure."""
+    return tuple(fn(t) for t in x) if isinstance(x, tuple) else fn(x)
+
+
+def in_groups(fn, x, size: int, grouped: Optional[bool] = None):
     """``fn`` over the leading axis of ``x`` in calls of exactly ``size``
-    rows; by default on a CUDA tensor only, in one call on the CPU."""
-    n = x.shape[0]
-    if not (x.is_cuda if grouped is None else grouped):
+    rows; by default on a CUDA tensor only, in one call on the CPU. ``x``
+    and what ``fn`` returns may each be a tensor or a tuple of tensors
+    with one leading axis (the pwc arch's pyramid)."""
+    first = x[0] if isinstance(x, tuple) else x
+    n = first.shape[0]
+    if not (first.is_cuda if grouped is None else grouped):
         return fn(x)
     pad = -n % size
     if pad:
-        x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
-    outs = [fn(x[i:i + size]) for i in range(0, n + pad, size)]
-    return (outs[0] if len(outs) == 1 else torch.cat(outs))[:n]
+        x = each(lambda t: torch.cat([t, t[-1:].expand(pad, *t.shape[1:])]),
+                 x)
+    outs = [fn(each(lambda t: t[i:i + size], x))
+            for i in range(0, n + pad, size)]
+    if len(outs) > 1:
+        outs = [tuple(torch.cat(level) for level in zip(*outs))
+                if isinstance(outs[0], tuple) else torch.cat(outs)]
+    return each(lambda t: t[:n], outs[0])

@@ -108,7 +108,11 @@ def tp_model(model: MotionEstimator, mesh: mesh_lib.Mesh
     ``model`` axis as ``tp_param_sharding`` says, on this rank. Every rank
     of the axis must call it, and run the copy on the same inputs. Raises
     ``ValueError`` on a mesh without a ``model`` axis, or when a sharded
-    ResBlock's GroupNorm groups do not divide over the axis."""
+    ResBlock's GroupNorm groups do not divide over the axis, and on the
+    pwc arch, whose convs no spec shards."""
+    if model.cfg.arch == "pwc":
+        raise ValueError("tensor parallelism shards the corr and stacked "
+                         "archs' convs; arch 'pwc' is not supported")
     spec = mesh_lib.tp_param_sharding(mesh, model.state_dict())
     axis = mesh.along(mesh_lib.MODEL_AXIS)
     tp = copy.deepcopy(model)

@@ -1,8 +1,9 @@
 """Streaming stabilization pipeline: one device step per T-frame chunk.
 
     uint8 chunk → resize to model res (normalize folded in) → encoder over
-      the unique frames → feature windows → corr head offsets (the stacked
-      arch: stacked pixel windows → the model) → fused
+      the unique frames → feature windows → corr head offsets (pwc: the
+      pyramid's windows → PWC-Net's flows → head; the stacked arch:
+      stacked pixel windows → the model) → fused
       offsets-to-warp-to-uint8 kernel → uint8 chunk
 
 Long videos stream in chunks of T frames carrying a (window-1)-frame
@@ -27,7 +28,8 @@ from dvsg_tpu_torch.config import StabilizeConfig
 from dvsg_tpu_torch.models import motion_cnn
 from dvsg_tpu_torch.ops import resize as resize_ops
 from dvsg_tpu_torch.ops import warp as warp_ops
-from dvsg_tpu_torch.ops.grouped import CHUNK_GROUP, ENCODE_GROUP, in_groups
+from dvsg_tpu_torch.ops.grouped import (CHUNK_GROUP, ENCODE_GROUP, each,
+                                         in_groups)
 from dvsg_tpu_torch.pipeline import pathsmooth
 from dvsg_tpu_torch.utils.metrics import StageTimer
 
@@ -73,10 +75,11 @@ def predict_chunk_offsets(cfg: StabilizeConfig,
     (t + window - 1)-frame model-resolution sequence (..., t+N-1, mh, mw,
     C); a leading clip axis is folded into the frame axis.
 
-    The corr arch encodes each unique frame once (sliding windows share
-    window-1 frames) and assembles feature windows from the cache, per
-    clip; the stacked arch runs the model on the stacked pixel windows.
-    The model runs in fixed-size calls on the card (ops/grouped.py).
+    The corr and pwc archs encode each unique frame once (sliding windows
+    share window-1 frames) and assemble feature windows from the cache
+    (the pwc arch: one a pyramid level), per clip; the stacked arch runs
+    the model on the stacked pixel windows. The model runs in fixed-size
+    calls on the card (ops/grouped.py).
     """
     n = cfg.model.window
     lead = seq.shape[:-4]
@@ -88,13 +91,15 @@ def predict_chunk_offsets(cfg: StabilizeConfig,
     else:
         feats = in_groups(lambda f: motion_cnn.encode_frames(model, f),
                           seq.reshape(-1, *seq.shape[-3:]), ENCODE_GROUP)
-        feats = feats.reshape(*lead, seq.shape[-4], *feats.shape[1:])
         idx = (torch.arange(t, device=seq.device)[:, None]
                + torch.arange(n, device=seq.device)[None, :])
-        windows = feats[..., idx, :, :, :]          # (..., t, n, gh, gw, F)
+
+        def windows(f):                         # (..., t, n, h, w, F) flat
+            f = f.reshape(*lead, seq.shape[-4], *f.shape[1:])
+            return f[..., idx, :, :, :].reshape(-1, n, *f.shape[-3:])
         offsets = in_groups(
             lambda w: motion_cnn.offsets_from_feature_windows(model, w),
-            windows.reshape(-1, *windows.shape[-4:]), CHUNK_GROUP)
+            each(windows, feats), CHUNK_GROUP)
     offsets = offsets.reshape(*lead, t, *offsets.shape[1:])
     if cfg.strength != 1.0:
         # Partial stabilization: scale the predicted correction.

@@ -27,6 +27,7 @@ from dvsg_tpu_torch.config import TrainConfig
 from dvsg_tpu_torch.models import motion_cnn
 from dvsg_tpu_torch.ops import grid as grid_ops
 from dvsg_tpu_torch.ops import warp as warp_ops
+from dvsg_tpu_torch.ops.grouped import each
 from dvsg_tpu_torch.pipeline.stabilize import build_windows, exact_math
 from dvsg_tpu_torch.train import synthetic
 from dvsg_tpu_torch.utils.metrics import span
@@ -215,12 +216,16 @@ def loss_from_batch(model: motion_cnn.MotionEstimator, batch,
         wins = build_windows(in_frames, s, n)          # (B, S, mh, mw, N*C)
         offsets = motion_cnn.predict_offsets(model, wins.flatten(0, 1))
     else:
-        # Encode each unique frame once; windows share window-1 frames.
+        # Encode each unique frame once; windows share window-1 frames
+        # (the pwc arch: per level of its pyramid).
         feats = motion_cnn.encode_frames(model, in_frames.flatten(0, 1))
-        feats = feats.reshape(b, clip_len, *feats.shape[1:])
-        fwins = torch.stack([feats[:, k:k + n] for k in range(s)], dim=1)
+
+        def windows(f):
+            f = f.reshape(b, clip_len, *f.shape[1:])
+            return torch.stack([f[:, k:k + n] for k in range(s)],
+                               dim=1).flatten(0, 1)
         offsets = motion_cnn.offsets_from_feature_windows(
-            model, fwins.flatten(0, 1))
+            model, each(windows, feats))
     grids = grid_ops.grid_from_offsets(offsets, mh, mw)
     # Grid-differentiable warp; frames are data, so grid-only gradients
     # are exactly what the loss needs.

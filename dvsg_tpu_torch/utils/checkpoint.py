@@ -7,7 +7,11 @@ and the model config as JSON bytes under ``__config__``.
 ``params_from_flax`` maps such a flat dict onto the port's
 ``MotionEstimator`` state dict: conv kernels go from HWIO to OIHW,
 GroupNorm ``scale`` becomes ``weight``; ``params_to_flax`` is the inverse,
-and ``export_npz`` writes a file the reference's ``load_npz`` reads.
+and ``export_npz`` writes a file the reference's ``load_npz`` reads. The
+pwc arch's parameters (NVlabs' PWC-Net names, ``models/motion_cnn.py``)
+save and load the same way, a transposed conv's (in, out, kh, kw) kernel
+through the same pair of transposes; the reference has no pwc arch, so
+such a file is the port's own.
 
 A training checkpoint directory holds ``model_config.json``,
 ``params/<step>.npz`` (the same single-file format) and
